@@ -27,10 +27,6 @@ import jax
 if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
     jax.config.update("jax_platforms", "cpu")
 
-if jax.default_backend() != "cpu":
-    print("note: interactive missions are dispatch-bound on remote TPUs; "
-          "set JAX_PLATFORMS=cpu for speed", flush=True)
-
 from otslam_tpu.config import (CameraConfig, LidarConfig, OTSLAMConfig,
                                ReconstructionConfig, TSDFConfig, TrackerConfig)
 from otslam_tpu.core import io as tio

@@ -1,4 +1,4 @@
-"""Production-scale mission workflow: the MISSION_r04 recipe as a script.
+"""Production-scale mission workflow as a script.
 
 The full 5-object-group scene (table + 4 chairs + cardboard box + 2 cones,
 the reference's cardboard_table_chairs_cones_room.world placements) run
@@ -15,9 +15,7 @@ closed-loop with the production estimated-pose stack:
 
 Run:  python examples/production_mission.py [workdir]
 
-On a machine whose default device is the remote TPU this runs as-is
-(perception fuses 64 ticks per dispatch); for CPU set JAX_PLATFORMS=cpu
-and expect the perception loop to dominate the wall time.
+It runs on the default JAX device (set JAX_PLATFORMS=cpu for the CPU).
 """
 
 import dataclasses as dc
@@ -53,7 +51,7 @@ def main(workdir: str) -> dict:
         scene_world=world, workdir=workdir, cfg=cfg,
         start_pose=(0.5, 4.5, 0.0),
         odom_noise_per_m=0.01, use_localizer=True,
-        perception_batch=64 if jax.default_backend() != "cpu" else 8)
+        perception_batch=8)
     summary = runner.run(max_ticks=24000)
     print(f"mission: {summary.missions_completed} missions, labels "
           f"{summary.labels}, removed checks visited "
@@ -62,7 +60,7 @@ def main(workdir: str) -> dict:
     # 2. reconstruct the captured dataset (per-object auto-sized volumes)
     ds = CaptureDataset(os.path.join(workdir, "dataset"), cfg.camera)
     objdir = os.path.join(workdir, "dataset", "3d_reconst")
-    out = reconstruct_all(ds, cfg.reconstruction, backend="pallas",
+    out = reconstruct_all(ds, cfg.reconstruction, backend="sparse",
                           save_dir=objdir, auto_origin=True)
     for name, res in out.items():
         print(f"  {name}: {len(res.points)} pts from {res.num_frames} frames")

@@ -1,7 +1,7 @@
 // otslam_tpu native host runtime.
 //
 // The reference's online layer is C++ ROS nodes (SURVEY.md §2.2); the
-// TPU-native equivalent keeps the *host-side real-time plumbing* native while
+// rebuild keeps the *host-side real-time plumbing* native while
 // all numerics live in XLA/Pallas. This library provides:
 //
 //   * FrameRing — a lock-free single-producer/single-consumer ring buffer of

@@ -1,4 +1,4 @@
-"""otslam_tpu — a TPU-native selective 3D mapping framework.
+"""otslam_tpu — a selective 3D mapping framework on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of OTSLAM
 (object-triggered 3D SLAM, reference: TakiRyo/object-triggered-3D-SLAM):
@@ -22,18 +22,17 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# TPU MXU f32 matmuls round inputs to bf16 by default — a ~0.4% relative
-# error that silently corrupts SE(3) compositions, point transforms, and
-# least-squares solves (measured: 3e-3 rad rotation floor in ICP). Geometry
-# here is precision-critical and the small-K matmuls gain nothing from bf16,
-# so default to full precision; hot kernels that *want* bf16 cast their
-# inputs explicitly and are unaffected.
+# Accelerators may run f32 matmuls at reduced input precision by default
+# (TF32 on the GPU's tensor cores, bf16 elsewhere) — a ~1e-3 relative error
+# that silently corrupts SE(3) compositions, point transforms and
+# least-squares solves (a 3e-3 rad rotation floor in ICP). Geometry here is
+# precision-critical and the small-K matmuls gain nothing from the
+# reduced-precision paths, so default to full f32; code that wants bf16
+# passes an explicit precision and is unaffected.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache for (remote-)TPU sessions; pure-CPU or
-# platform-unresolved sessions stay out of it (cross-machine AOT SIGILL
-# hazard). Policy + rationale live in _compile_cache; CLI --platform and
-# __graft_entry__ call the same helpers so the decision stays consistent.
+# Persistent compilation cache: policy and rationale in _compile_cache;
+# the CLI's --platform and __graft_entry__ call the same helper.
 import os as _os
 
 from otslam_tpu._compile_cache import configure_compile_cache as _configure_cc

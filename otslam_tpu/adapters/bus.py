@@ -1,7 +1,7 @@
 """In-process pub-sub bus with the reference's topic/action names.
 
 The reference's dataflow is ROS 2 DDS topics between processes (SURVEY.md
-§2.4); the TPU-native pipeline is a host-side orchestration loop, but this
+§2.4); the device pipeline is a host-side orchestration loop, but this
 thin shim exposes the same topic names so reference-era tooling, logging, or
 a future real ROS bridge can be dropped in without touching the core.
 

@@ -41,7 +41,7 @@ class TSDFConfig:
     voxel_size: float = 0.01
     sdf_trunc: float = 0.04
     # Fixed-extent dense grid, HBM-resident. Objects are at most a few meters;
-    # 256^3 @ 1 cm = 2.56 m cube. Dims padded to lane multiples for TPU tiling.
+    # 256^3 @ 1 cm = 2.56 m cube. Dims are multiples of the 8^3 block.
     dims: Tuple[int, int, int] = (256, 256, 256)
     origin: Tuple[float, float, float] = (-1.28, -1.28, -0.28)
     max_weight: float = 10000.0  # weight saturation (keeps running mean stable)

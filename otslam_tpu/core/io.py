@@ -1,29 +1,28 @@
 """File IO for the OTSLAM on-disk formats.
 
 The reference's process boundaries are all files (SURVEY.md §5 checkpoint):
-  * capture dataset: color/<label>_<n>.jpg, depth/<label>_<n>.png (uint16 mm),
-    poses/<label>_<n>.txt (4x4 map->camera matrix)   [scanner_node.cpp:268-299]
+  * capture dataset: color/<label>_<n>.{png,jpg}, depth/<label>_<n>.png
+    (uint16 mm), poses/<label>_<n>.txt (4x4 map->camera matrix)
+    [scanner_node.cpp:268-299]
   * 2D maps: PGM + YAML (slam_toolbox format)        [hybrid_map.py:31-38]
   * 3D objects / hybrid maps: .ply point clouds      [reconstruct_rgbd_filter.py:140]
 
-This module implements all of them natively (no Open3D): PLY in both binary
-and ascii, with point clouds (xyz[+rgb][+normals]) and triangle meshes.
+This module implements all of them with numpy and the standard library (no
+Open3D): PLY in both binary and ascii, with point clouds
+(xyz[+rgb][+normals]) and triangle meshes; PNG (8-bit RGB and 16-bit grey)
+through zlib; the flat map YAML. Only JPEG (the reference robot's colour
+frames) needs OpenCV or Pillow.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import struct
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
-
-try:
-    import cv2
-except ImportError:  # pragma: no cover
-    cv2 = None
-
-import yaml
 
 # ---------------------------------------------------------------------------
 # PLY
@@ -240,9 +239,37 @@ def write_pgm(path: str, img: np.ndarray) -> None:
         f.write(img.tobytes())
 
 
+def _yaml_scalar(text: str):
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    for conv in (int, float):
+        try:
+            return conv(t)
+        except ValueError:
+            pass
+    return t
+
+
 def read_map_yaml(path: str) -> dict:
+    """Read a slam_toolbox / map_server map YAML: flat ``key: value`` lines,
+    values scalars or ``[a, b, c]`` flow lists; ``#`` starts a comment."""
+    out = {}
     with open(path, "r") as f:
-        return yaml.safe_load(f)
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            key, sep, val = line.partition(":")
+            if not sep:
+                raise ValueError(f"{path}: not a flat map YAML line: {line!r}")
+            val = val.strip()
+            if val.startswith("[") and val.endswith("]"):
+                out[key.strip()] = [_yaml_scalar(v)
+                                    for v in val[1:-1].split(",") if v.strip()]
+            else:
+                out[key.strip()] = _yaml_scalar(val)
+    return out
 
 
 def write_map_yaml(path: str, image: str, resolution: float,
@@ -250,12 +277,131 @@ def write_map_yaml(path: str, image: str, resolution: float,
                    negate: int = 0, occupied_thresh: float = 0.65,
                    free_thresh: float = 0.196) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    org = ", ".join(repr(float(o)) for o in origin)
     with open(path, "w") as f:
-        yaml.safe_dump(
-            {"image": image, "resolution": float(resolution),
-             "origin": [float(o) for o in origin], "negate": negate,
-             "occupied_thresh": occupied_thresh, "free_thresh": free_thresh},
-            f, default_flow_style=None)
+        f.write(f"image: {image}\n"
+                f"resolution: {float(resolution)!r}\n"
+                f"origin: [{org}]\n"
+                f"negate: {int(negate)}\n"
+                f"occupied_thresh: {float(occupied_thresh)!r}\n"
+                f"free_thresh: {float(free_thresh)!r}\n")
+
+
+# ---------------------------------------------------------------------------
+# PNG (8-bit RGB colour, 16-bit grey depth)
+# ---------------------------------------------------------------------------
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels (grey, RGB, grey+alpha, RGBA; palettes unsupported)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 3) uint8 RGB or (H, W) uint16 grey -> PNG bytes (filter 0)."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        depth, ctype, raw = 8, 2, img
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        depth, ctype, raw = 16, 0, img.astype(">u2")
+    else:
+        raise ValueError(f"PNG encoder takes (H,W,3) uint8 or (H,W) uint16, "
+                         f"got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(raw).reshape(h, -1).view(np.uint8)
+    scan = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    return (_PNG_SIG
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                              0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(scan.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def _unfilter_slow(ftype: int, line, prev, bpp: int):
+    """Average (3) and Paeth (4) rows depend on the decoded left neighbour
+    byte by byte; they only occur in files from other encoders."""
+    out = bytearray(line.tobytes())
+    up = prev.tobytes()
+    for i in range(len(out)):
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:
+            out[i] = (out[i] + ((a + b) >> 1)) & 0xFF
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W) or (H, W, C) array, uint8 or uint16 (8/16-bit,
+    non-interlaced, non-palette: every file encode_png writes, and the
+    depth/colour PNGs other encoders write)."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if depth not in (8, 16) or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace}")
+    ch = _PNG_CHANNELS[ctype]
+    bpp = ch * depth // 8
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for r in range(h):
+        ftype, line = raw[r, 0], raw[r, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:      # sub: running sum per byte lane, mod 256
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:      # up
+            cur = line + prev
+        elif ftype in (3, 4):
+            cur = _unfilter_slow(int(ftype), line, prev, bpp)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[r] = cur
+        prev = out[r]
+    if depth == 16:
+        img = out.view(">u2").astype(np.uint16)
+    else:
+        img = out
+    return img.reshape(h, w, ch) if ch > 1 else img.reshape(h, w)
+
+
+def read_png(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +420,9 @@ def write_pose_txt(path: str, pose: np.ndarray) -> None:
 
 def read_depth_png(path: str, depth_scale: float = 1000.0) -> np.ndarray:
     """uint16 mm depth PNG -> float32 meters (0 where invalid)."""
-    if cv2 is not None:
-        raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    else:  # pragma: no cover
-        from PIL import Image
-        raw = np.asarray(Image.open(path))
-    if raw is None:
+    if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return raw.astype(np.float32) / depth_scale
+    return read_png(path).astype(np.float32) / depth_scale
 
 
 def write_depth_png(path: str, depth_m: np.ndarray, depth_scale: float = 1000.0,
@@ -292,32 +433,54 @@ def write_depth_png(path: str, depth_m: np.ndarray, depth_scale: float = 1000.0,
     d[~np.isfinite(d)] = 0.0
     d[d > depth_max] = 0.0
     u16 = np.round(d * depth_scale).astype(np.uint16)  # cv::convertTo rounds
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    if cv2 is not None:
-        cv2.imwrite(path, u16)
-    else:  # pragma: no cover
+    write_png(path, u16)
+
+
+def _image_module():
+    """OpenCV or Pillow, for JPEG (the reference robot's colour frames)."""
+    try:
+        import cv2
+        return cv2
+    except ImportError:
+        pass
+    try:
         from PIL import Image
-        Image.fromarray(u16).save(path)
+        return Image
+    except ImportError:
+        raise ImportError("JPEG colour frames need OpenCV (cv2) or Pillow; "
+                          "PNG needs neither") from None
 
 
 def read_color(path: str) -> np.ndarray:
-    """Color image -> (H, W, 3) uint8 RGB."""
-    if cv2 is not None:
-        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    """Color image (PNG, or JPEG through cv2/Pillow) -> (H, W, 3) uint8 RGB."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if path.lower().endswith(".png"):
+        img = read_png(path)
+        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] < 3:
+            raise ValueError(f"{path}: not an 8-bit colour PNG")
+        return np.ascontiguousarray(img[..., :3])
+    mod = _image_module()
+    if getattr(mod, "__name__", "") == "cv2":
+        bgr = mod.imread(path, mod.IMREAD_COLOR)
         if bgr is None:
-            raise FileNotFoundError(path)
+            raise ValueError(f"{path}: unreadable image")
         return bgr[..., ::-1].copy()
-    from PIL import Image  # pragma: no cover
-    return np.asarray(Image.open(path).convert("RGB"))
+    return np.asarray(mod.open(path).convert("RGB"))
 
 
 def write_color(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) RGB, uint8 or float in [0, 1] -> PNG, or JPEG through
+    cv2/Pillow by extension."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8:
         rgb = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+    if path.lower().endswith(".png"):
+        write_png(path, rgb)
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    if cv2 is not None:
-        cv2.imwrite(path, rgb[..., ::-1])
-    else:  # pragma: no cover
-        from PIL import Image
-        Image.fromarray(rgb).save(path)
+    mod = _image_module()
+    if getattr(mod, "__name__", "") == "cv2":
+        mod.imwrite(path, rgb[..., ::-1])
+    else:
+        mod.fromarray(rgb).save(path)

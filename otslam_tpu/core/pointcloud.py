@@ -1,6 +1,6 @@
 """Fixed-capacity point cloud container.
 
-TPU-first idiom: clouds are (capacity, 3) arrays plus a validity mask so every
+Static-shape idiom: clouds are (capacity, 3) arrays plus a validity mask so every
 kernel sees static shapes. `count` is the number of valid points; invalid rows
 are padding. Host-side helpers compact to dense numpy for IO.
 """

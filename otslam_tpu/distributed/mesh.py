@@ -16,7 +16,7 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
 
     shape=None uses all devices on a 1-D 'data' axis. For 2-D meshes pass
     e.g. shape=(4, 2), axis_names=("data", "model") — the data axis shards
-    frames (embarrassingly parallel TSDF partial sums, ICI all-reduce to
+    frames (embarrassingly parallel TSDF partial sums, one all-reduce to
     merge), the model axis shards the voxel grid (slab decomposition, no
     communication at integrate time).
     """

@@ -1,11 +1,11 @@
-"""Multi-chip sharding of the fusion and eval workloads.
+"""Multi-device sharding of the fusion and eval workloads.
 
 TSDF integration is an order-independent weighted sum (SURVEY.md §2.4), which
 fixes the parallel decomposition:
 
 * **data axis** — frames shard across devices; each device computes partial
   sums (sum_tw, sum_w, sum_cw) over its shard with the same scan kernel as
-  single-chip, and one ``psum`` over ICI merges them. Scaling is
+  single-device, and one ``psum`` merges them. Scaling is
   embarrassingly parallel; the all-reduce volume is the voxel grid, paid
   once per batch (not per frame).
 * **model axis** — the voxel grid shards as X-slabs; every device integrates
@@ -14,7 +14,8 @@ fixes the parallel decomposition:
   2-D (data x model) mesh: psum over 'data' only.
 
 Everything uses ``shard_map`` over an explicit Mesh; collectives are XLA
-psums riding ICI.
+psums, which XLA hands to NCCL on GPUs (NVLink between the cards of a
+host).
 """
 
 from __future__ import annotations
@@ -114,13 +115,13 @@ def fuse_frames_hierarchical(depths: jnp.ndarray, colors: jnp.ndarray,
     """Multi-host data parallelism over a 2-level (dcn, ici) mesh.
 
     Frames shard over BOTH axes (flat data parallelism); the partial-volume
-    reduction is HIERARCHICAL: psum over the ici axis first (chips within a
-    host, fast interconnect), then over dcn — so the slow cross-host network
-    carries one already-reduced volume per host instead of one per chip.
-    On a real pod build the mesh with
-    jax.experimental.mesh_utils.create_hybrid_device_mesh so the ici axis
-    maps to physical intra-host links; the virtual-CPU tests exercise the
-    same program structure.
+    reduction is HIERARCHICAL: psum over the inner (``ici_axis``) axis
+    first (cards within a host, NVLink), then over the outer (``dcn_axis``)
+    one — so the slower cross-host network carries one already-reduced
+    volume per host instead of one per card. On a multi-host cluster build
+    the mesh with jax.experimental.mesh_utils.create_hybrid_device_mesh so
+    the inner axis maps to intra-host links; the virtual-CPU tests exercise
+    the same program structure.
     """
     ntotal = mesh.shape[dcn_axis] * mesh.shape[ici_axis]
     if depths.shape[0] % ntotal:

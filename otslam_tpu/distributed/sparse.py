@@ -1,10 +1,9 @@
-"""Multi-chip sharding of the BLOCK-SPARSE (Pallas) fusion path.
+"""Multi-device sharding of the BLOCK-SPARSE fusion path.
 
 `distributed/sharding.py` scales the dense `kernels/tsdf.py` grid; this
-module scales the flagship block-sparse path (`kernels/tsdf_pallas.py` /
-`kernels/tsdf_block.py`) — the kernel that produces the headline fused
-frames/s number — over a device mesh. The workload contract is the
-reference's TSDF hot loop (reconstruct_rgbd_filter.py:91-105).
+module scales the block-sparse path (`kernels/tsdf_block.py`) over a device
+mesh. The workload contract is the reference's TSDF hot loop
+(reconstruct_rgbd_filter.py:91-105).
 
 Decomposition (same algebra as the dense path, block-major state):
 
@@ -14,20 +13,17 @@ Decomposition (same algebra as the dense path, block-major state):
   Each device computes its local per-frame block bands, the per-device band
   unions are all-gathered (an (nd, NB) bool array — a few hundred KB), and
   every device ORs the unions of the devices BEFORE it into its starting
-  `created` mask. Contiguous sharding makes this exactly the single-chip
+  `created` mask. Contiguous sharding makes this exactly the single-device
   creation prefix, so per-frame active sets match the serial path
   bit-for-bit. Each device then fuses its shard into a zero-initialized
-  block volume with the unchanged single-chip kernel; the per-block partial
-  sums (tsdf*w, w, color*w) reduce with one psum over ICI, and weighted
-  means commute (order-independent, SURVEY §2.4) — so the merged volume
-  matches the serial running mean up to float reassociation.
+  block volume with the single-device scan (tsdf_block.fuse_scan); the
+  per-block partial sums (tsdf*w, w, color*w) reduce with one psum, and
+  weighted means commute (order-independent, SURVEY §2.4) — so the merged
+  volume matches the serial running mean up to float reassociation.
 * **object axis** — one BlockTSDFVolume per object, objects sharded across
   devices, ZERO integrate-time communication. Per-object volume placement
   uses an extrinsic shift (world -> world - (origin_o - base)) so a single
   compiled program with a static grid serves every object.
-
-Pallas inside shard_map runs per-device, unchanged; on the virtual CPU mesh
-pass interpret=True (the driver dryrun does).
 """
 
 from __future__ import annotations
@@ -38,53 +34,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from otslam_tpu.core.camera import PinholeIntrinsics
 from otslam_tpu.kernels.tsdf_block import (
-    BLOCK_VOXELS, BlockTSDFVolume, _active_blocks, pack_rgb)
-from otslam_tpu.kernels.tsdf_pallas import (
-    _expand_skipped, _integrate_core_impl, _near_fallback_impl,
-    _validate_depth_win)
-
-
-def auto_max_active_sharded(vol: BlockTSDFVolume, depths, extrinsics,
-                            intr: PinholeIntrinsics, n_shards: int,
-                            bucket: int = 128) -> int:
-    """Static active-block capacity for fuse_frames_sparse_data_parallel.
-
-    The sharded path re-chunks each device's LOCAL frames into FPC-frame
-    kernel calls, so chunk boundaries differ from the single-chip batch and
-    tsdf_pallas.auto_max_active on the full batch is not a strict bound
-    (a local chunk can straddle two global chunks whose union exceeds
-    either). This replays the creation recurrence globally and takes the
-    max union over the per-shard chunking.
-    """
-    import numpy as np
-
-    from otslam_tpu.kernels.tsdf_pallas import FPC, _cumulative_or, BPG
-
-    n = jnp.shape(depths)[0]
-    if n % n_shards:
-        # fuse_frames_sparse_data_parallel rejects indivisible batches; a
-        # bound computed over truncated shards would silently underestimate
-        # for a caller that pads to divisibility AFTER sizing
-        raise ValueError(f"{n} frames not divisible by {n_shards} shards")
-    nb = vol.num_blocks
-    depths = jnp.asarray(depths)
-    extrinsics = jnp.asarray(extrinsics)
-    band_all, visible_all = jax.vmap(
-        lambda d, e: _active_blocks(vol, d, e, intr))(depths, extrinsics)
-    created_cum = _cumulative_or(band_all) | vol.created[:nb][None]
-    active = np.asarray(created_cum & visible_all)
-    n = active.shape[0]
-    per = n // n_shards
-    best = 0
-    for s in range(n_shards):
-        a = active[s * per:(s + 1) * per]
-        pad = (-a.shape[0]) % FPC
-        if pad:
-            a = np.concatenate([a, np.zeros((pad, nb), bool)])
-        union = a.reshape(-1, FPC, nb).any(axis=1)
-        best = max(best, int(union.sum(axis=1).max()))
-    best = max(best, BPG)
-    return -(-best // bucket) * bucket
+    BlockTSDFVolume, _active_blocks, auto_max_active, clear_dead_row,
+    fuse_scan, pack_rgb)
 
 
 def _combine_partials(vol: BlockTSDFVolume, sum_tw, sum_w, sum_cw,
@@ -98,9 +49,7 @@ def _combine_partials(vol: BlockTSDFVolume, sum_tw, sum_w, sum_cw,
     c_new = (vol.color * w3_old + sum_cw) / jnp.tile(denom, (1, 3))
     # compact_ids padding scatters garbage into the dead row on every
     # device; restore the row-nb == 0 invariant after the reduce
-    t_new = t_new.at[nb].set(0.0)
-    w_new = w_new.at[nb].set(0.0)
-    c_new = c_new.at[nb].set(0.0)
+    t_new, w_new, c_new = clear_dead_row(t_new, w_new, c_new, nb)
     created = vol.created.at[:nb].set(created_any[:nb])
     created = created.at[nb].set(False)
     return BlockTSDFVolume(t_new, w_new, c_new, created, vol.origin,
@@ -110,48 +59,28 @@ def _combine_partials(vol: BlockTSDFVolume, sum_tw, sum_w, sum_cw,
 def fuse_frames_sparse_data_parallel(
         vol: BlockTSDFVolume, depths: jnp.ndarray, colors: jnp.ndarray,
         extrinsics: jnp.ndarray, intr: PinholeIntrinsics, mesh: Mesh,
-        data_axis: str = "data", max_active: int | None = None,
-        color_res: str = "half", near_field: str = "fallback",
-        max_near: int = 512, interpret: bool = False,
-        patch_rows: int | None = None,
-        depth_win: int | None = None,
-        color_rows: int | None = None,
-        depth_planes: int = 4) -> BlockTSDFVolume:
-    """Frame-sharded block-sparse fusion (Pallas kernel per device, one
-    psum of the per-block partial sums over the data axis).
+        data_axis: str = "data",
+        max_active: int | None = None) -> BlockTSDFVolume:
+    """Frame-sharded block-sparse fusion (the single-device scan per
+    device, one psum of the per-block partial sums over the data axis).
 
-    Same contract as kernels.tsdf_pallas.integrate_frames_pallas up to
-    float reassociation of the cross-device reduce: the creation prefix is
+    Same contract as tsdf_block.integrate_frames_sparse up to float
+    reassociation of the cross-device reduce: the creation prefix is
     replayed exactly (see module docstring), so per-frame active sets match
-    the serial path. N frames must divide by the data-axis size.
-    max_active=None (default) sizes the capacity exactly with
-    auto_max_active_sharded; an explicit value must bound each device's
-    per-chunk union active count (shard chunk boundaries differ from the
-    single-chip batch's, so the plain auto_max_active is not a strict
-    bound).
-
-    near_field="fallback" runs the exact XLA pass for slab-uncovered
-    (frame, block) pairs UNCONDITIONALLY with static capacity `max_near`
-    per frame (no host sync is possible inside shard_map; use
-    near_fallback_counts beforehand if you need to validate the capacity);
-    "skip" drops those pairs (exact for far-field capture circles).
+    the serial path and the serial auto_max_active bound holds on every
+    device (max_active=None sizes it). N frames must divide by the
+    data-axis size.
     """
-    if color_res not in ("half", "full"):
-        raise ValueError(f"color_res must be 'half' or 'full': {color_res!r}")
-    if near_field not in ("fallback", "skip"):
-        raise ValueError(
-            f"near_field must be 'fallback' or 'skip': {near_field!r}")
-    depth_win = _validate_depth_win(depth_win, color_res, depth_planes)
     nd = mesh.shape[data_axis]
     n = depths.shape[0]
     if n % nd:
         raise ValueError(f"{n} frames not divisible by {nd} devices")
+    depths = jnp.asarray(depths)
+    extrinsics = jnp.asarray(extrinsics)
     if max_active is None:
-        max_active = auto_max_active_sharded(vol, depths, extrinsics, intr,
-                                             nd)
+        max_active = auto_max_active(vol, depths, extrinsics, intr)
     nb = vol.num_blocks
     vol_meta = (vol.grid_blocks, vol.origin, vol.voxel_size, vol.sdf_trunc)
-    full_color = color_res == "full"
 
     def shard_fn(tsdf0, weight0, color0, created0, d, c, e):
         idx = jax.lax.axis_index(data_axis)
@@ -167,19 +96,12 @@ def fuse_frames_sparse_data_parallel(
         prev = jnp.any(unions & before, axis=0)
         created_start = created0.at[:nb].set(created0[:nb] | prev)
 
-        n_local = d.shape[0]
-        tsdf_d, w_d, c_d, created_d, _, skipped_c, ids_all = \
-            _integrate_core_impl(
-                tsdf0, weight0, color0, created_start, d, c, e, intr,
-                vol_meta, max_active, full_color, interpret, patch_rows,
-                depth_win, color_rows, depth_planes)
-        if near_field == "fallback":
-            skipped = _expand_skipped(skipped_c, ids_all, nb, n_local)
-            cpacked = jax.vmap(pack_rgb)(c)
-            tsdf_d, w_d, c_d = _near_fallback_impl(
-                tsdf_d, w_d, c_d, d, cpacked, e, skipped, intr, vol_meta,
-                max_near)
-
+        # the per-device scan carries device-varying state
+        tsdf0, weight0, color0 = jax.lax.pcast(
+            (tsdf0, weight0, color0), data_axis, to="varying")
+        tsdf_d, w_d, c_d, created_d = fuse_scan(
+            tsdf0, weight0, color0, created_start, d,
+            jax.vmap(pack_rgb)(c), e, intr, vol_meta, max_active)
         sum_tw = jax.lax.psum(tsdf_d * w_d, data_axis)
         sum_w = jax.lax.psum(w_d, data_axis)
         sum_cw = jax.lax.psum(c_d * jnp.tile(w_d, (1, 3)), data_axis)
@@ -191,29 +113,21 @@ def fuse_frames_sparse_data_parallel(
         shard_fn, mesh=mesh,
         in_specs=(P(), P(), P(), P(), P(data_axis), P(data_axis),
                   P(data_axis)),
-        out_specs=(P(), P(), P(), P()),
-        # Pallas calls inside the mapped fn cannot declare varying-mesh-axis
-        # metadata on their out_shapes; replication is handled explicitly
-        # via the psums above
-        check_vma=False)
+        out_specs=(P(), P(), P(), P()))
     zeros = jnp.zeros_like
     sum_tw, sum_w, sum_cw, created_any = jax.jit(mapped)(
         zeros(vol.tsdf), zeros(vol.weight), zeros(vol.color), vol.created,
-        jnp.asarray(depths), jnp.asarray(colors), jnp.asarray(extrinsics))
+        depths, jnp.asarray(colors), extrinsics)
     return _combine_partials(vol, sum_tw, sum_w, sum_cw, created_any)
 
 
 def fuse_objects_sparse_parallel(
         depths: jnp.ndarray, colors: jnp.ndarray, extrinsics: jnp.ndarray,
         origins: jnp.ndarray, intr: PinholeIntrinsics, cfg, mesh: Mesh,
-        axis: str = "data", max_active: int | None = None,
-        color_res: str = "half", near_field: str = "fallback",
-        max_near: int = 512, interpret: bool = False,
-        patch_rows: int | None = None, depth_win: int | None = None,
-        color_rows: int | None = None, depth_planes: int = 4):
+        axis: str = "data", max_active: int | None = None):
     """OBJECT-axis parallel block-sparse fusion: each device fuses the frame
     stacks of its object shard into per-object block volumes with the
-    single-chip Pallas kernel — embarrassingly parallel, zero integrate-time
+    single-device scan — embarrassingly parallel, zero integrate-time
     collectives (the sparse analog of sharding.fuse_objects_parallel).
 
     depths (O, N, H, W), colors (O, N, H, W, 3), extrinsics (O, N, 4, 4),
@@ -227,18 +141,12 @@ def fuse_objects_sparse_parallel(
     tuple(origins[i]), ...).
 
     max_active=None (default) sizes the static capacity exactly: the max
-    over objects of tsdf_pallas.auto_max_active at that object's volume
-    origin (per-object chunking here matches the single-chip batch's, so
-    the plain per-object bound is strict).
+    over objects of auto_max_active at that object's volume origin.
     """
     import numpy as np
 
     from otslam_tpu.kernels.tsdf_block import make_block_volume
-    from otslam_tpu.kernels.tsdf_pallas import auto_max_active
 
-    if color_res not in ("half", "full"):
-        raise ValueError(f"color_res must be 'half' or 'full': {color_res!r}")
-    depth_win = _validate_depth_win(depth_win, color_res, depth_planes)
     nd = mesh.shape[axis]
     n_obj = depths.shape[0]
     if n_obj % nd:
@@ -258,8 +166,6 @@ def fuse_objects_sparse_parallel(
     vol_meta = (proto.grid_blocks, proto.origin, proto.voxel_size,
                 proto.sdf_trunc)
     base = jnp.asarray(cfg.origin, jnp.float32)
-    full_color = color_res == "full"
-    obj_per_dev = n_obj // nd
 
     def one_object(d, c, e, o):
         # world' = world - (o - base): the voxel at cfg.origin + idx*vs in
@@ -267,38 +173,21 @@ def fuse_objects_sparse_parallel(
         shift = jnp.eye(4, dtype=e.dtype).at[:3, 3].set(
             (o - base).astype(e.dtype))
         e_shift = jnp.einsum("nij,jk->nik", e, shift)
-        tsdf0 = jnp.zeros_like(proto.tsdf)
-        w0 = jnp.zeros_like(proto.weight)
-        c0 = jnp.zeros_like(proto.color)
-        cr0 = jnp.zeros_like(proto.created)
-        tsdf_o, w_o, c_o, cr_o, _, skipped_c, ids_all = _integrate_core_impl(
-            tsdf0, w0, c0, cr0, d, c, e_shift, intr, vol_meta, max_active,
-            full_color, interpret, patch_rows, depth_win, color_rows,
-            depth_planes)
-        if near_field == "fallback":
-            skipped = _expand_skipped(skipped_c, ids_all, nb, d.shape[0])
-            cpacked = jax.vmap(pack_rgb)(c)
-            tsdf_o, w_o, c_o = _near_fallback_impl(
-                tsdf_o, w_o, c_o, d, cpacked, e_shift, skipped, intr,
-                vol_meta, max_near)
-        tsdf_o = tsdf_o.at[nb].set(0.0)
-        w_o = w_o.at[nb].set(0.0)
-        c_o = c_o.at[nb].set(0.0)
+        # the per-device scan carries device-varying state
+        zeros = jax.lax.pcast(
+            tuple(jnp.zeros_like(x) for x in (proto.tsdf, proto.weight,
+                                              proto.color, proto.created)),
+            axis, to="varying")
+        tsdf_o, w_o, c_o, cr_o = fuse_scan(
+            *zeros, d, jax.vmap(pack_rgb)(c), e_shift, intr, vol_meta,
+            max_active)
+        tsdf_o, w_o, c_o = clear_dead_row(tsdf_o, w_o, c_o, nb)
         return tsdf_o, w_o, c_o, cr_o
 
-    def shard_fn(d, c, e, o):
-        # static unroll over the per-device object shard (Pallas calls with
-        # scalar-prefetch grids do not vmap; shard sizes are tiny)
-        outs = [one_object(d[i], c[i], e[i], o[i])
-                for i in range(obj_per_dev)]
-        return tuple(jnp.stack([out[k] for out in outs])
-                     for k in range(4))
-
     mapped = jax.shard_map(
-        shard_fn, mesh=mesh,
+        jax.vmap(one_object), mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis)),
-        out_specs=(P(axis), P(axis), P(axis), P(axis)),
-        check_vma=False)  # Pallas out_shapes carry no vma metadata
+        out_specs=(P(axis), P(axis), P(axis), P(axis)))
     return jax.jit(mapped)(
         jnp.asarray(depths), jnp.asarray(colors), jnp.asarray(extrinsics),
         jnp.asarray(origins, jnp.float32))
@@ -349,15 +238,14 @@ def extract_meshes_sharded(vols, mesh: Mesh, axis: str = "data",
 def reconstruct_all_sharded_sparse(ds, cfg, mesh: Mesh, axis: str = "data",
                                    auto_origin: bool = True,
                                    max_active: int | None = None,
-                                   interpret: bool = False,
                                    **extract_kw) -> dict:
-    """Object-sharded reconstruct_all over the BLOCK-SPARSE Pallas path:
-    one jitted dispatch fuses every object's frames (objects sharded across
+    """Object-sharded reconstruct_all over the BLOCK-SPARSE path: one
+    jitted dispatch fuses every object's frames (objects sharded across
     devices), then sparse extraction + filtering runs per object exactly
-    like pipeline.reconstruct_object(backend='pallas') — including exact
+    like pipeline.reconstruct_object(backend='sparse') — including exact
     capacity auto-sizing (max_active=None, the default, measures each
-    object's per-chunk union active-block bound instead of assuming a
-    fixed capacity).
+    object's per-frame active-block bound instead of assuming a fixed
+    capacity).
 
     Frame counts pad to the dataset max with empty (depth 0) frames (their
     bands are empty, so they create and integrate nothing); the object list
@@ -399,7 +287,7 @@ def reconstruct_all_sharded_sparse(ds, cfg, mesh: Mesh, axis: str = "data",
     tsdf, weight, color, created = fuse_objects_sparse_parallel(
         np.stack(ds_list), np.stack(cs_list), np.stack(es_list),
         np.stack(os_list).astype(np.float32), intr, cfg.tsdf, mesh, axis,
-        max_active=max_active, interpret=interpret)
+        max_active=max_active)
 
     from otslam_tpu.kernels.tsdf_block import make_block_volume
     proto = make_block_volume(cfg.tsdf)

@@ -17,12 +17,12 @@ from otslam_tpu.kernels.tsdf_block import (  # noqa: F401
     BlockTSDFVolume,
     make_block_volume,
     integrate_frames_sparse,
+    auto_max_active,
     extract_surface_points_sparse,
     block_to_dense,
     dense_to_block,
 )
 from otslam_tpu.kernels.marching import extract_mesh, extract_mesh_soup  # noqa: F401
-from otslam_tpu.kernels.tsdf_pallas import integrate_frames_pallas  # noqa: F401
 from otslam_tpu.kernels.nn import (  # noqa: F401
     nn_distance,
     nn_distance_radius,

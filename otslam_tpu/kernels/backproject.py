@@ -8,7 +8,7 @@ Reference behavior being reproduced (not translated):
     (check_one_frame.py:22-30).
   * scanner_node capture clipping — NaN -> 0, > 5 m -> 0 (scanner_node.cpp:277-281).
 
-TPU-first: whole-image fused elementwise ops; the (H, W, 3) ray grid is
+Whole-image fused elementwise ops; the (H, W, 3) ray grid is
 precomputed once per intrinsics and the per-frame work is one multiply.
 """
 

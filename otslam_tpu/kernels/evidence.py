@@ -7,7 +7,7 @@ above time_threshold are emitted as points at the cell centers
 (key * res + res/2), where key = trunc(coord / res) toward zero
 (diff_node.cpp:126, C integer-cast semantics).
 
-TPU-native shape: the C++ hash map becomes a dense (GH, GW) grid centered on
+Shape: the C++ hash map becomes a dense (GH, GW) grid centered on
 the world origin; hits are a boolean scatter, the dwell update is one fused
 elementwise pass. Point extraction stays on device as a mask.
 """

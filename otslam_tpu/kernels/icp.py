@@ -1,15 +1,15 @@
-"""Iterative Closest Point registration on TPU.
+"""Iterative Closest Point registration.
 
 Mirrors Open3D ``registration_icp`` with ``TransformationEstimationPointToPoint``
 as used by the eval scripts (eval_table_chair.py:90-104: threshold 0.05,
 identity init, max 2000 iterations), plus a point-to-plane variant for pose
 refinement (BASELINE.json north_star).
 
-TPU-native shape: correspondences come from the tiled matmul NN kernel
-(kernels/nn.py); each iteration is one fused device step inside
-``lax.while_loop`` with Open3D's convergence criteria (relative fitness and
-relative RMSE below 1e-6). The 3x3 SVD / 6x6 solve at the end of each
-iteration is tiny and stays on-device.
+Correspondences come from the tiled NN search (kernels/nn.py); each
+iteration is one fused device step inside ``lax.while_loop`` with Open3D's
+convergence criteria (relative fitness and relative RMSE below 1e-6). The
+3x3 SVD / 6x6 solve at the end of each iteration is tiny and stays
+on-device.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def _umeyama_rt(src_pts, dst_pts, weights):
     cq = jnp.sum(dst_pts * weights[:, None], axis=0) / wsum
     sp = src_pts - cp
     sq = dst_pts - cq
-    # full precision: the TPU MXU's default bf16 input rounding floors the
-    # achievable alignment at ~3e-3 rad otherwise
+    # full precision: a reduced-precision (bf16/TF32) product floors the
+    # achievable alignment at ~3e-3 rad
     H = jax.lax.dot_general((sp * weights[:, None]), sq,
                             (((0,), (0,)), ((), ())),
                             precision=jax.lax.Precision.HIGHEST)  # (3,3)
@@ -68,7 +68,7 @@ def _sorted_for_window(src, dst, smask, dmask, T0, nn_axis: int):
 
 
 @partial(jax.jit, static_argnames=("max_iterations", "chunk", "nn_window",
-                                   "nn_axis", "nn_interpret"))
+                                   "nn_axis", "nn_impl"))
 def icp_point_to_point(src: jnp.ndarray, dst: jnp.ndarray,
                        threshold: float = 0.05,
                        init: jnp.ndarray | None = None,
@@ -79,7 +79,7 @@ def icp_point_to_point(src: jnp.ndarray, dst: jnp.ndarray,
                        relative_rmse: float = 1e-6,
                        chunk: int = 4096,
                        nn_window: int = 0, nn_axis: int = 2,
-                       nn_interpret: bool = False) -> ICPResult:
+                       nn_impl: str = "auto") -> ICPResult:
     """Point-to-point ICP aligning src onto dst.
 
     nn_window > 0 enables the radius-limited windowed NN kernel (see
@@ -89,7 +89,7 @@ def icp_point_to_point(src: jnp.ndarray, dst: jnp.ndarray,
     inlier threshold, so out-of-radius correspondences carry zero weight
     either way); size with auto_nn_window. A traced fit flag falls back to
     the full scan whenever the window assumption breaks, so results never
-    depend on it."""
+    depend on it. nn_impl picks the NN implementation (nn._resolve_impl)."""
     n = src.shape[0]
     smask = jnp.ones(n, bool) if src_mask is None else src_mask
     T0 = jnp.eye(4, dtype=jnp.float32) if init is None else init.astype(jnp.float32)
@@ -102,10 +102,9 @@ def icp_point_to_point(src: jnp.ndarray, dst: jnp.ndarray,
         if nn_window > 0:
             return nn_distance_radius(
                 p, dst, threshold, smask, dmask, window_chunks=nn_window,
-                axis=nn_axis, with_index=True, chunk=chunk,
-                interpret=nn_interpret)
+                axis=nn_axis, with_index=True, impl=nn_impl)
         return nn_distance(p, dst, smask, dmask, chunk=chunk,
-                           with_index=True)
+                           with_index=True, impl=nn_impl)
 
     def metrics(T):
         p = src @ T[:3, :3].T + T[:3, 3]
@@ -144,7 +143,7 @@ def icp_point_to_point(src: jnp.ndarray, dst: jnp.ndarray,
 
 
 @partial(jax.jit, static_argnames=("max_iterations", "chunk", "nn_window",
-                                   "nn_axis", "nn_interpret"))
+                                   "nn_axis", "nn_impl"))
 def icp_point_to_plane(src: jnp.ndarray, dst: jnp.ndarray,
                        dst_normals: jnp.ndarray,
                        threshold: float = 0.05,
@@ -156,10 +155,10 @@ def icp_point_to_plane(src: jnp.ndarray, dst: jnp.ndarray,
                        relative_rmse: float = 1e-6,
                        chunk: int = 4096,
                        nn_window: int = 0, nn_axis: int = 2,
-                       nn_interpret: bool = False) -> ICPResult:
+                       nn_impl: str = "auto") -> ICPResult:
     """Point-to-plane ICP (linearized small-angle 6x6 solve per iteration).
 
-    nn_window: see icp_point_to_point — same windowed-NN contract."""
+    nn_window, nn_impl: see icp_point_to_point."""
     n = src.shape[0]
     smask = jnp.ones(n, bool) if src_mask is None else src_mask
     T0 = jnp.eye(4, dtype=jnp.float32) if init is None else init.astype(jnp.float32)
@@ -173,10 +172,9 @@ def icp_point_to_plane(src: jnp.ndarray, dst: jnp.ndarray,
         if nn_window > 0:
             return nn_distance_radius(
                 p, dst, threshold, smask, dmask, window_chunks=nn_window,
-                axis=nn_axis, with_index=True, chunk=chunk,
-                interpret=nn_interpret)
+                axis=nn_axis, with_index=True, impl=nn_impl)
         return nn_distance(p, dst, smask, dmask, chunk=chunk,
-                           with_index=True)
+                           with_index=True, impl=nn_impl)
 
     def metrics(T):
         p = src @ T[:3, :3].T + T[:3, 3]

@@ -1,12 +1,23 @@
 """Nearest-neighbor distances between point clouds (chamfer-style).
 
 Reproduces Open3D ``compute_point_cloud_distance`` (used by the eval
-protocol, eval_table_chair.py:106-119) as a tiled brute-force kernel: the
-distance matrix is never materialized; target chunks stream through
-``|a-b|^2 = |a|^2 + |b|^2 - 2 a.b`` with the cross-term on the MXU, and a
-running (min, argmin) carry. 50k x 100k is a few GFLOP — trivial for TPU,
-no KD-tree needed (KD-trees are pointer-chasing, the worst possible TPU
-workload; brute-force matmul is the TPU-native design).
+protocol, eval_table_chair.py:106-119) as a tiled brute-force search: the
+distance matrix is never materialized. Source points form tiles of
+``_SRC_TILE`` rows; each tile scans a contiguous range of ``_DST_CHUNK``-row
+target chunks, computing ``dx^2 + dy^2 + dz^2`` directly in f32 and
+carrying a running (min, argmin) with ties to the lowest index. A full scan
+gives every tile all chunks; the radius-limited search (ICP's
+correspondences) gives each tile only the chunks of the sorted target that
+lie within the radius of its span.
+
+Two implementations share that contract:
+
+* ``_nn_min_plain`` — jax.numpy; the reference and the path off the GPU.
+* ``_nn_min_triton`` — one Pallas kernel through Triton that keeps the
+  distances and a per-(row, lane) running minimum in registers (the plain
+  form writes each distance tile to device memory and reads it back).
+
+``_resolve_impl`` is the one place that picks between them.
 """
 
 from __future__ import annotations
@@ -15,337 +26,195 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 _BIG = jnp.float32(3.0e38)
+# masked target rows move here: their squared distance overflows to +inf,
+# so they never win a min (and an all-masked target reports _BIG)
+_FAR = 1.0e20
+
+_SRC_TILE = 64     # source rows per tile (one kernel program)
+_DST_CHUNK = 512   # target rows per window chunk
+_KERNEL_BLOCK = 128  # target rows per kernel loop step
+
+_IMPLS = ("auto", "plain", "triton", "interpret")
 
 
-def _hilo3(x: jnp.ndarray):
-    """3-way bf16 hi/mid/lo split carried as f32: h+m+l reconstructs x to
-    ~24 mantissa bits, each part bf16-representable, so the MXU's
-    DEFAULT-precision input rounding is lossless. (A 2-way split is NOT
-    enough here: the |a|^2+|b|^2-2ab expansion cancels ~|a|^2-magnitude
-    terms down to nn-distance scale, so ~2^-16 relative error scrambles the
-    argmin; 3-way gives ~2^-24, the same class as Precision.HIGHEST.)
-
-    The rounding MUST be lax.reduce_precision, not a bf16 cast round-trip:
-    the platform sets --xla_allow_excess_precision, which elides
-    f32->bf16->f32 cast pairs inside jit, silently collapsing the split to
-    (x, 0, 0) and re-rounding full-f32 operands on the MXU."""
-    def rp(v):
-        return jax.lax.reduce_precision(v, exponent_bits=8, mantissa_bits=7)
-
-    h = rp(x)
-    r = x - h
-    m = rp(r)
-    l = rp(r - m)
-    return h, m, l
+def _resolve_impl(impl: str) -> str:
+    """The implementation that runs: "auto" takes the Triton kernel on a
+    GPU and the plain search elsewhere. "triton" off the GPU is an error
+    (nothing quietly interprets); "interpret" runs the kernel under the
+    Pallas interpreter and exists for tests."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown NN impl {impl!r}: use one of {_IMPLS}")
+    on_gpu = jax.default_backend() == "gpu"
+    if impl == "auto":
+        return "triton" if on_gpu else "plain"
+    if impl == "triton" and not on_gpu:
+        raise ValueError("the Triton NN kernel needs a GPU backend "
+                         f"(have {jax.default_backend()!r}); use impl='plain'")
+    return impl
 
 
-_SRC_TILE = 256   # src rows per kernel step
-_DST_CHUNK = 1024  # dst lanes per in-kernel dot (tile sizes bounded by the
-# ~16 MB scoped-VMEM stack: dist2 + index candidates at (tile, chunk) f32)
+def _pad_rows(x: jnp.ndarray, n: int) -> jnp.ndarray:
+    """Pad (k, 3) to (n, 3) by repeating the last row: keeps a sorted
+    coordinate monotone, so padded rows never widen a window."""
+    return jnp.concatenate(
+        [x, jnp.broadcast_to(x[-1:], (n - x.shape[0], 3))], axis=0)
 
 
-def _make_nn_kernel(n_dst_chunks: int, dc: int):
-    """One-dot-per-tile NN search. The entire masked squared-distance tile
-
-        dist2 = |a|^2 + |b|^2 - 2 a.b   (+BIG for masked dst)
-
-    comes out of a SINGLE K=24 MXU pass over 3-way hi/mid/lo split
-    coordinates (see _hilo3): per coordinate the six product pairs
-    (hh, hm, mh, hl, lh, mm) reconstruct a.b to ~2^-24, and the |a|^2 /
-    |b|^2 terms ride along as split-value-times-one slots. One K<=128 pass
-    costs the same MXU time as any other, so the full-precision distance
-    tile is as cheap as a bf16 one. The min/argmin runs on the tile while
-    it is still in VMEM — the XLA scan formulation materializes the (N, M)
-    distance matrix in HBM, which is pure-bandwidth-bound ~10x slower at
-    50k x 50k.
-    """
-
-    def kernel(lhs_ref, rhs_ref, bd_out, bi_out):
-        ts = lhs_ref.shape[0]
-        # operands stay f32: their VALUES are bf16-representable, so the
-        # MXU's DEFAULT-precision input rounding is lossless — and explicit
-        # bf16 casts of small-minor-dim tiles miscompute on real Mosaic
-        # (interpret-mode-only-correct), so avoid them
-        lhs = lhs_ref[...]
-        best_d = jnp.full((ts, 1), 3.0e38, jnp.float32)
-        best_i = jnp.zeros((ts, 1), jnp.int32)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (ts, dc), 1)
-        for j in range(n_dst_chunks):
-            rhs = rhs_ref[:, j * dc:(j + 1) * dc]
-            dist2 = jax.lax.dot_general(
-                lhs, rhs, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT)     # (ts, dc)
-            cmin = jnp.min(dist2, axis=1, keepdims=True)
-            cand = jnp.where(dist2 == cmin, iota + j * dc, jnp.int32(2**30))
-            cidx = jnp.min(cand, axis=1, keepdims=True)
-            take = cmin < best_d
-            best_d = jnp.where(take, cmin, best_d)
-            best_i = jnp.where(take, cidx, best_i)
-        bd_out[...] = best_d
-        bi_out[...] = best_i
-
-    return kernel
-
-
-def _pack_nn_operands(srcp, dstp, dmaskp):
-    """(lhs, rhs) K=24 split operands for the NN kernels (see
-    _make_nn_kernel). srcp/dstp must already be tile/chunk padded."""
-    ah, am, al = _hilo3(srcp)
-    s2 = jnp.sum(srcp * srcp, axis=-1, keepdims=True)
-    s2h, s2m, s2l = _hilo3(s2)
-    one = jnp.ones_like(s2)
-    # product pairs (lhs_slot, rhs_slot): (h,h) (h,m) (m,h) (h,l) (l,h)
-    # (m,m) per coordinate + 3 slots of s2*1 + 3 of 1*d2 = K 24
-    lhs = jnp.concatenate([ah, ah, am, ah, al, am,
-                           s2h, s2m, s2l, one, one, one], axis=1)
-
-    bh, bm, bl = _hilo3(dstp)
-    d2 = jnp.sum(dstp * dstp, axis=-1, keepdims=True)
-    d2 = jnp.where(dmaskp[:, None], d2, _BIG)
-    d2h, d2m, d2l = _hilo3(d2)
-    oned = jnp.ones_like(d2)
-    rhs = jnp.concatenate([-2.0 * bh, -2.0 * bm, -2.0 * bh, -2.0 * bl,
-                           -2.0 * bh, -2.0 * bm,
-                           oned, oned, oned, d2h, d2m, d2l],
-                          axis=1).T  # (24, mpad)
-    return lhs, rhs
-
-
-# the (24, mpad) f32 rhs lives whole in VMEM; past _DST_SLAB rows the full
-# kernel runs as a host-unrolled loop of slabs whose results min-combine
-# (exact, same lowest-index tie rule). A 362k-row rhs (34.8 MB) failed the
-# remote compile with a 93.4 MB scoped-vmem stack — the compiler stages a
-# layout copy of the whole operand, so the real footprint is ~2.7x rhs.
-_PALLAS_MAX_DST = 1_048_576
-_DST_SLAB = 81_920          # dc multiple; rhs slab 7.9 MB (~21 MB scoped)
-# the windowed (radius-limited) kernel also keeps the full rhs resident and
-# cannot slab (window starts address the whole axis): route bigger clouds
-# to the slabbed full kernel instead
-_WINDOWED_MAX_DST = 131_072
-
-
-def _nn_vmem_params(mpad: int, interpret: bool) -> dict:
-    """compiler_params sized to the VMEM-resident rhs: the TPU compiler's
-    default 16 MiB scoped budget rejects clouds past ~60k dst rows at
-    compile time (same failure class as the fusion kernel's image
-    operands, see tsdf_pallas._update_active_blocks). The scoped stack
-    holds ~2.7x the rhs bytes (a staged layout copy of the operand plus
-    the resident buffer — measured 93.41 MB at a 34.8 MB rhs), so budget
-    3x + slack."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rhs_bytes = 24 * mpad * 4
-    if interpret or rhs_bytes * 3 <= 12 << 20:
-        return {}
-    return {"compiler_params": pltpu.CompilerParams(
-        vmem_limit_bytes=3 * rhs_bytes + (8 << 20))}
-
-
-def _nn_min_pallas(src, dstp, dmaskp, interpret: bool):
-    """(best_d2, best_i) via the fused Pallas kernel, host-slabbed over dst
-    so the VMEM-resident rhs stays bounded at any cloud size. dstp is
-    chunk-padded; masked/padded dst columns carry BIG in their d2 terms.
-    Tie rule matches the single-slab kernel (lowest index wins: strict <
-    keeps the earlier slab's winner)."""
-    m = dstp.shape[0]
-    if m <= _DST_SLAB:
-        return _nn_min_pallas_slab(src, dstp, dmaskp, interpret)
-    best_d = best_i = None
-    for s in range(0, m, _DST_SLAB):
-        e = min(s + _DST_SLAB, m)
-        d_s, i_s = _nn_min_pallas_slab(src, dstp[s:e], dmaskp[s:e],
-                                       interpret)
-        i_s = i_s + s
-        if best_d is None:
-            best_d, best_i = d_s, i_s
-        else:
-            take = d_s < best_d
-            best_i = jnp.where(take, i_s, best_i)
-            best_d = jnp.where(take, d_s, best_d)
-    return best_d, best_i
-
-
-def _nn_min_pallas_slab(src, dstp, dmaskp, interpret: bool):
-    from jax.experimental import pallas as pl
-
-    n, m = src.shape[0], dstp.shape[0]
-    ts, dc = _SRC_TILE, _DST_CHUNK
-    mpad = -(-m // dc) * dc
-    dstp = jnp.pad(dstp, ((0, mpad - m), (0, 0)))
-    dmaskp = jnp.pad(dmaskp, (0, mpad - m))
-    npad = -(-n // ts) * ts
-    srcp = jnp.pad(src, ((0, npad - n), (0, 0)))
-
-    lhs, rhs = _pack_nn_operands(srcp, dstp, dmaskp)
-
-    kernel = _make_nn_kernel(mpad // dc, dc)
-    bd, bi = pl.pallas_call(
-        kernel,
-        grid=(npad // ts,),
-        in_specs=[pl.BlockSpec((ts, 24), lambda i: (i, 0)),
-                  pl.BlockSpec((24, mpad), lambda i: (0, 0))],
-        out_specs=[pl.BlockSpec((ts, 1), lambda i: (i, 0)),
-                   pl.BlockSpec((ts, 1), lambda i: (i, 0))],
-        out_shape=[jax.ShapeDtypeStruct((npad, 1), jnp.float32),
-                   jax.ShapeDtypeStruct((npad, 1), jnp.int32)],
-        interpret=interpret,
-        **_nn_vmem_params(mpad, interpret),
-    )(lhs, rhs)
-    return bd[:n, 0], bi[:n, 0]
-
-
-def _make_nn_kernel_windowed(n_win: int, dc: int):
-    """Radius-limited variant of _make_nn_kernel: the scalar-prefetched
-    per-tile chunk start restricts the scan to n_win contiguous dst chunks
-    around the tile's sort-axis span (dst sorted on one coordinate, src
-    tiles coherent on it). The full rhs stays VMEM-resident; each step
-    reads one dc-lane window at a 128-aligned dynamic start (dc is a
-    multiple of 128). MXU and VPU work both scale by n_win/nchunks."""
-    from jax.experimental import pallas as pl
-
-    def kernel(c0_ref, lhs_ref, rhs_ref, bd_out, bi_out):
-        i = pl.program_id(0)
-        c0 = c0_ref[i]
-        ts = lhs_ref.shape[0]
-        lhs = lhs_ref[...]
-        best_d = jnp.full((ts, 1), 3.0e38, jnp.float32)
-        best_i = jnp.zeros((ts, 1), jnp.int32)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (ts, dc), 1)
-        for j in range(n_win):
-            start = pl.multiple_of((c0 + j) * dc, 128)
-            rhs = rhs_ref[:, pl.ds(start, dc)]
-            dist2 = jax.lax.dot_general(
-                lhs, rhs, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT)     # (ts, dc)
-            cmin = jnp.min(dist2, axis=1, keepdims=True)
-            cand = jnp.where(dist2 == cmin, iota + (c0 + j) * dc,
-                             jnp.int32(2**30))
-            cidx = jnp.min(cand, axis=1, keepdims=True)
-            take = cmin < best_d
-            best_d = jnp.where(take, cmin, best_d)
-            best_i = jnp.where(take, cidx, best_i)
-        bd_out[...] = best_d
-        bi_out[...] = best_i
-
-    return kernel
-
-
-def _nn_min_windowed(src, dst, dmask, radius, n_win: int, axis: int,
-                     interpret: bool):
-    """(best_d2, best_i, dstp) radius-limited NN via per-tile chunk windows,
-    with a traced fit flag routing ineligible inputs to the full kernel.
-
-    dst must be sorted ascending on coordinate `axis` (checked into the fit
-    flag — an unsorted dst falls back, it cannot corrupt results). For src
-    points whose true NN lies farther than `radius`, the returned distance
-    is only guaranteed to be >= the true distance (hence >= radius); points
-    with a neighbor within `radius` get the exact NN (window construction
-    covers every dst chunk overlapping the tile span +- radius)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n, m = src.shape[0], dst.shape[0]
-    ts, dc = _SRC_TILE, _DST_CHUNK
-    mpad = -(-m // dc) * dc
-    # pad with the LAST row (keeps the sort axis monotone so chunk ranges
-    # stay sorted); padded rows are masked off
-    dstp = jnp.concatenate(
-        [dst, jnp.broadcast_to(dst[-1:], (mpad - m, 3))], axis=0)
-    dmaskp = jnp.pad(dmask, (0, mpad - m))
-    npad = -(-n // ts) * ts
-    srcp = jnp.concatenate(
-        [src, jnp.broadcast_to(src[-1:], (npad - n, 3))], axis=0)
-
-    nchunks = mpad // dc
-    ntiles = npad // ts
-
-    sz = srcp[:, axis].reshape(ntiles, ts)
-    tile_lo = jnp.min(sz, axis=1) - radius
-    tile_hi = jnp.max(sz, axis=1) + radius
-    dz = dstp[:, axis]
-    chunk_lo = dz[::dc]                    # first row of each chunk
-    chunk_hi = dz[dc - 1::dc]              # last row of each chunk
-    c0 = jnp.searchsorted(chunk_hi, tile_lo, side="left")
-    c1 = jnp.searchsorted(chunk_lo, tile_hi, side="right")
-    sorted_ok = jnp.all(dz[1:] >= dz[:-1])
-    fit = sorted_ok & jnp.all(c1 - c0 <= n_win)
-    # clamping only widens coverage: the window slides left to stay in
-    # range, keeping [c0, c1) inside it whenever fit holds
-    c0 = jnp.clip(c0, 0, nchunks - n_win).astype(jnp.int32)
-
-    lhs, rhs = _pack_nn_operands(srcp, dstp, dmaskp)
-    out_shape = [jax.ShapeDtypeStruct((npad, 1), jnp.float32),
-                 jax.ShapeDtypeStruct((npad, 1), jnp.int32)]
-
-    def windowed():
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(ntiles,),
-            in_specs=[pl.BlockSpec((ts, 24), lambda i, *_: (i, 0)),
-                      pl.BlockSpec(memory_space=pltpu.VMEM)],
-            out_specs=[pl.BlockSpec((ts, 1), lambda i, *_: (i, 0)),
-                       pl.BlockSpec((ts, 1), lambda i, *_: (i, 0))],
-        )
-        bd, bi = pl.pallas_call(
-            _make_nn_kernel_windowed(n_win, dc), grid_spec=grid_spec,
-            out_shape=out_shape, interpret=interpret,
-            **_nn_vmem_params(mpad, interpret))(c0, lhs, rhs)
-        return bd, bi
-
-    def full():
-        bd, bi = pl.pallas_call(
-            _make_nn_kernel(nchunks, dc),
-            grid=(ntiles,),
-            in_specs=[pl.BlockSpec((ts, 24), lambda i: (i, 0)),
-                      pl.BlockSpec((24, mpad), lambda i: (0, 0))],
-            out_specs=[pl.BlockSpec((ts, 1), lambda i: (i, 0)),
-                       pl.BlockSpec((ts, 1), lambda i: (i, 0))],
-            out_shape=out_shape, interpret=interpret,
-            **_nn_vmem_params(mpad, interpret))(lhs, rhs)
-        return bd, bi
-
-    bd, bi = jax.lax.cond(fit, windowed, full)
-    return bd[:n, 0], bi[:n, 0], dstp
-
-
-def _nn_min_xla(src, dstp, dmaskp, chunk: int):
-    """Reference scan formulation (CPU fallback / parity oracle)."""
-    n = src.shape[0]
-    s2 = jnp.sum(src * src, axis=-1)  # (N,)
+def _nn_min_plain(srcp, dstp, starts, counts, chunk: int):
+    """(best_d2, best_i) per padded source row. srcp (ntiles*_SRC_TILE, 3),
+    dstp (nchunks*chunk, 3) with masked rows at _FAR; tile t scans chunks
+    [starts[t], starts[t] + counts[t])."""
+    ntiles = srcp.shape[0] // _SRC_TILE
     nchunks = dstp.shape[0] // chunk
+    src_t = srcp.reshape(ntiles, _SRC_TILE, 3)
     dst_c = dstp.reshape(nchunks, chunk, 3)
-    msk_c = dmaskp.reshape(nchunks, chunk)
 
-    def body(carry, inputs):
+    def body(j, carry):
         best_d, best_i = carry
-        d_chunk, m_chunk, base = inputs
-        d2 = jnp.sum(d_chunk * d_chunk, axis=-1)  # (chunk,)
-        # full-precision cross term: TPU MXU matmuls round to bf16 by
-        # default, which corrupts argmin selection once point spacing is
-        # finer than ~0.4% of coordinate magnitude
-        cross = jax.lax.dot_general(
-            src, d_chunk, (((1,), (1,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST)  # (N, chunk) on the MXU
-        dist2 = s2[:, None] + d2[None, :] - 2.0 * cross
-        dist2 = jnp.where(m_chunk[None, :], dist2, _BIG)
-        cmin = jnp.min(dist2, axis=1)
-        carg = jnp.argmin(dist2, axis=1).astype(jnp.int32) + base
-        take = cmin < best_d
+        c = jnp.minimum(starts + j, nchunks - 1)               # (ntiles,)
+        blk = jnp.take(dst_c, c, axis=0)                       # (T, C, 3)
+        ex = src_t[:, :, None, 0] - blk[:, None, :, 0]
+        ey = src_t[:, :, None, 1] - blk[:, None, :, 1]
+        ez = src_t[:, :, None, 2] - blk[:, None, :, 2]
+        d2 = ex * ex + ey * ey + ez * ez                       # (T, S, C)
+        cmin = jnp.min(d2, axis=2)
+        carg = jnp.argmin(d2, axis=2).astype(jnp.int32) + (c * chunk)[:, None]
+        take = (j < counts)[:, None] & (cmin < best_d)
         return (jnp.where(take, cmin, best_d),
-                jnp.where(take, carg, best_i)), None
+                jnp.where(take, carg, best_i))
 
-    # carry inherits the inputs' device-varying type (shard_map-compatible)
-    zvar = (jnp.zeros((), jnp.float32) * src.reshape(-1)[0]
-            * dstp.reshape(-1)[0])
-    init = (jnp.full(n, _BIG) + zvar,
-            jnp.zeros(n, jnp.int32) + zvar.astype(jnp.int32))
-    bases = jnp.arange(nchunks, dtype=jnp.int32) * chunk
-    (best_d, best_i), _ = jax.lax.scan(body, init, (dst_c, msk_c, bases))
-    return best_d, best_i
+    # the carry inherits the inputs' device-varying type (shard_map)
+    zero = jnp.zeros((), jnp.float32) * srcp[0, 0] * dstp[0, 0]
+    init = (jnp.full((ntiles, _SRC_TILE), jnp.inf) + zero,
+            jnp.zeros((ntiles, _SRC_TILE), jnp.int32) + zero.astype(jnp.int32))
+    best_d, best_i = jax.lax.fori_loop(0, jnp.max(counts), body, init)
+    return best_d.reshape(-1), best_i.reshape(-1)
+
+
+def _nn_kernel(start_ref, count_ref, sx_ref, sy_ref, sz_ref,
+               dx_ref, dy_ref, dz_ref, bd_ref, bi_ref):
+    """One source tile: loop over its target blocks with the running
+    (min, block) kept per (row, lane) in registers — elementwise work only
+    inside the loop; the lane reduction runs once at the end. K=3 is too
+    thin for the tensor cores, and direct differences need no
+    |a|^2+|b|^2-2ab cancellation fix, so the arithmetic runs on the CUDA
+    cores in f32. Ties: a lane keeps its earliest block (strict <), and the
+    final reduction takes the lowest index among the lanes at the min."""
+    from jax.experimental import pallas as pl
+
+    steps = _DST_CHUNK // _KERNEL_BLOCK
+    b0 = start_ref[()] * steps
+    sx, sy, sz = sx_ref[...], sy_ref[...], sz_ref[...]
+    lane = jnp.arange(_KERNEL_BLOCK, dtype=jnp.int32)
+
+    def body(k, carry):
+        best_d, best_b = carry
+        blk = b0 + k
+        sl = pl.ds(pl.multiple_of(blk * _KERNEL_BLOCK, _KERNEL_BLOCK),
+                   _KERNEL_BLOCK)
+        ex = sx[:, None] - dx_ref[sl][None, :]
+        ey = sy[:, None] - dy_ref[sl][None, :]
+        ez = sz[:, None] - dz_ref[sl][None, :]
+        d2 = ex * ex + ey * ey + ez * ez             # (_SRC_TILE, block)
+        take = d2 < best_d
+        return jnp.where(take, d2, best_d), jnp.where(take, blk, best_b)
+
+    shape = (_SRC_TILE, _KERNEL_BLOCK)
+    init = (jnp.full(shape, jnp.inf, jnp.float32),
+            jnp.zeros(shape, jnp.int32))
+    best_d, best_b = jax.lax.fori_loop(0, count_ref[()] * steps, body, init)
+    cmin = jnp.min(best_d, axis=1)
+    idx = best_b * _KERNEL_BLOCK + lane[None, :]
+    bd_ref[...] = cmin
+    bi_ref[...] = jnp.min(jnp.where(best_d == cmin[:, None], idx,
+                                    jnp.iinfo(jnp.int32).max), axis=1)
+
+
+def _nn_min_triton(srcp, dstp, starts, counts, interpret: bool = False):
+    """The Pallas-Triton form of _nn_min_plain (chunk = _DST_CHUNK)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as pltriton
+
+    npad, mpad = srcp.shape[0], dstp.shape[0]
+    # outputs vary over the mesh axes the inputs vary over (shard_map)
+    vma = frozenset().union(*(jax.typeof(x).vma
+                              for x in (srcp, dstp, starts, counts)))
+    tile = pl.BlockSpec((_SRC_TILE,), lambda i: (i,))
+    scalar = pl.BlockSpec((None,), lambda i: (i,))
+    whole = pl.BlockSpec((mpad,), lambda i: (0,))
+    bd, bi = pl.pallas_call(
+        _nn_kernel,
+        grid=(npad // _SRC_TILE,),
+        in_specs=[scalar, scalar, tile, tile, tile, whole, whole, whole],
+        out_specs=[tile, tile],
+        out_shape=[jax.ShapeDtypeStruct((npad,), jnp.float32, vma=vma),
+                   jax.ShapeDtypeStruct((npad,), jnp.int32, vma=vma)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=8, num_stages=2),
+        interpret=interpret,
+        name="nn_min",
+    )(starts, counts, srcp[:, 0], srcp[:, 1], srcp[:, 2],
+      dstp[:, 0], dstp[:, 1], dstp[:, 2])
+    return bd, bi
+
+
+def _nn_search(src, dst, src_mask, dst_mask, with_index: bool, chunk: int,
+               impl: str, window=None):
+    """Shared front end: pad, place masked target rows out of reach, build
+    the per-tile chunk ranges (all chunks, or `window` =
+    (radius, window_chunks, axis) for the radius-limited search), run the
+    chosen implementation, and mask the result."""
+    impl = _resolve_impl(impl)
+    n, m = src.shape[0], dst.shape[0]
+    smask = jnp.ones(n, bool) if src_mask is None else src_mask
+    if m == 0:
+        # no dst at all: the same sentinel an all-masked dst produces
+        dists = jnp.where(smask, jnp.sqrt(_BIG), 0.0)
+        return (dists, jnp.zeros(n, jnp.int32)) if with_index else dists
+    if impl != "plain":
+        chunk = _DST_CHUNK
+    dmask = jnp.ones(m, bool) if dst_mask is None else dst_mask
+    mpad = -(-m // chunk) * chunk
+    npad = -(-n // _SRC_TILE) * _SRC_TILE
+    srcp = _pad_rows(src.astype(jnp.float32), npad)
+    dstp = _pad_rows(dst.astype(jnp.float32), mpad)
+    dvalid = jnp.arange(mpad) < m
+    dvalid = dvalid & jnp.pad(dmask, (0, mpad - m))
+    ntiles, nchunks = npad // _SRC_TILE, mpad // chunk
+
+    starts = jnp.zeros(ntiles, jnp.int32)
+    counts = jnp.full(ntiles, nchunks, jnp.int32)
+    if window is not None:
+        radius, n_win, axis = window
+        # chunk ranges from the sort coordinate (before masking moves rows)
+        sz = srcp[:, axis].reshape(ntiles, _SRC_TILE)
+        dz = dstp[:, axis]
+        c0 = jnp.searchsorted(dz[chunk - 1::chunk], jnp.min(sz, 1) - radius,
+                              side="left")
+        c1 = jnp.searchsorted(dz[::chunk], jnp.max(sz, 1) + radius,
+                              side="right")
+        # an unsorted target, or a tile needing more than window_chunks,
+        # takes the full scan: results never depend on the window
+        fit = jnp.all(dz[1:] >= dz[:-1]) & jnp.all(c1 - c0 <= n_win)
+        starts = jnp.where(fit, c0, starts).astype(jnp.int32)
+        counts = jnp.where(fit, jnp.maximum(c1 - c0, 0), counts)
+        counts = counts.astype(jnp.int32)
+    dstp = jnp.where(dvalid[:, None], dstp, _FAR)
+
+    if impl == "plain":
+        best_d, best_i = _nn_min_plain(srcp, dstp, starts, counts, chunk)
+    else:
+        best_d, best_i = _nn_min_triton(srcp, dstp, starts, counts,
+                                        interpret=impl == "interpret")
+    best_d, best_i = best_d[:n], best_i[:n]
+    best_d = jnp.where(best_d >= 0.5 * _BIG, _BIG, best_d)
+    dists = jnp.sqrt(jnp.where(smask, best_d, 0.0))
+    if with_index:
+        return dists, jnp.where(smask, best_i, 0)
+    return dists
 
 
 @partial(jax.jit, static_argnames=("chunk", "with_index", "impl"))
@@ -358,102 +227,37 @@ def nn_distance(src: jnp.ndarray, dst: jnp.ndarray,
     dst point.
 
     src (N,3), dst (M,3); masks select valid rows (padded clouds). Invalid
-    src rows get distance 0 and index 0 (mask them downstream). Returns
-    dists (N,) [, indices (N,)].
-
-    impl: "auto" uses the fused Pallas kernel on TPU (VMEM-resident distance
-    tiles, ~10x the XLA scan at eval scale) and the XLA scan elsewhere;
-    "pallas" / "xla" force a path (pallas interprets off-TPU).
+    src rows get distance 0 and index 0 (mask them downstream); with no
+    valid dst a point reports sqrt(3e38). Returns dists (N,) [, indices
+    (N,)]. chunk: target rows per step of the plain search (the kernel uses
+    its own blocks; results do not depend on it). impl: see _resolve_impl.
     """
-    n = src.shape[0]
-    m = dst.shape[0]
-    if m == 0:
-        # no dst at all: the same sentinel an all-masked dst produces
-        smask0 = jnp.ones(n, bool) if src_mask is None else src_mask
-        dists = jnp.where(smask0, jnp.sqrt(_BIG), 0.0)
-        if with_index:
-            return dists, jnp.zeros(n, jnp.int32)
-        return dists
-    pad = (-m) % chunk
-    dstp = jnp.pad(dst, ((0, pad), (0, 0)))
-    dmask = jnp.ones(m, bool) if dst_mask is None else dst_mask
-    dmaskp = jnp.pad(dmask, (0, pad))
-
-    on_tpu = jax.default_backend() != "cpu"
-    # beyond _PALLAS_MAX_DST the kernel's VMEM-resident rhs cannot fit on
-    # the chip — route "auto" to the HBM-chunked XLA scan (slower, works at
-    # any size); an explicit impl="pallas" is honored as asked
-    use_pallas = impl == "pallas" or (impl == "auto" and on_tpu
-                                      and m <= _PALLAS_MAX_DST)
-    if use_pallas:
-        best_d, best_i = _nn_min_pallas(src, dstp, dmaskp,
-                                        interpret=not on_tpu)
-    else:
-        best_d, best_i = _nn_min_xla(src, dstp, dmaskp, chunk)
-
-    # the |a|^2+|b|^2-2ab expansion loses ~1e-7 relative to cancellation
-    # (~3e-4 m at meter scale); recompute the winning pair's distance exactly
-    smask = jnp.ones(n, bool) if src_mask is None else src_mask
-    nearest = jnp.take(dstp, best_i, axis=0)
-    diff = src - nearest
-    exact = jnp.sum(diff * diff, axis=-1)
-    # "no valid dst" sentinel: the pallas path's hi/lo-split BIG can land
-    # slightly below _BIG, so test against half of it
-    exact = jnp.where(best_d >= 0.5 * _BIG, best_d, exact)
-    dists = jnp.sqrt(jnp.maximum(jnp.where(smask, exact, 0.0), 0.0))
-    if with_index:
-        return dists, jnp.where(smask, best_i, 0)
-    return dists
+    return _nn_search(src, dst, src_mask, dst_mask, with_index, chunk, impl)
 
 
 @partial(jax.jit, static_argnames=("window_chunks", "axis", "with_index",
-                                   "chunk", "interpret"))
+                                   "impl"))
 def nn_distance_radius(src: jnp.ndarray, dst: jnp.ndarray, radius,
                        src_mask: jnp.ndarray | None = None,
                        dst_mask: jnp.ndarray | None = None,
                        window_chunks: int = 8, axis: int = 2,
-                       with_index: bool = False, chunk: int = 4096,
-                       interpret: bool | None = None):
+                       with_index: bool = False, impl: str = "auto"):
     """nn_distance exact only within `radius`: for src points whose true NN
     is farther than radius, the returned distance is merely guaranteed
     >= the true distance (hence >= radius) and the index is that of some
     scanned point. This is the contract ICP needs — correspondences beyond
-    the inlier threshold carry zero weight — and it lets the kernel scan
-    only the ~window_chunks dst chunks near each source tile instead of all
-    of them (MXU/VPU work scales down by the same factor).
+    the inlier threshold carry zero weight — and it lets each source tile
+    scan only the dst chunks within the radius of its span instead of all
+    of them.
 
     dst should be sorted ascending on coordinate `axis` and src at least
     tile-coherent on it (e.g. also sorted); neither is required for
-    correctness — a traced fit flag falls back to the full kernel whenever
-    dst is unsorted or some tile's required window exceeds window_chunks.
-    Off-TPU this uses the exact XLA path (or interpret-mode Pallas when
-    interpret=True, for parity tests)."""
-    n, m = src.shape[0], dst.shape[0]
-    smask = jnp.ones(n, bool) if src_mask is None else src_mask
-    dmask = jnp.ones(m, bool) if dst_mask is None else dst_mask
-
-    on_tpu = jax.default_backend() != "cpu"
-    use_pallas = on_tpu or bool(interpret)
-    if (not use_pallas or window_chunks * _DST_CHUNK >= m
-            or m > _WINDOWED_MAX_DST):
-        # nn_distance applies the same size routing (XLA scan past the
-        # VMEM-resident rhs limit)
-        return nn_distance(src, dst, src_mask, dst_mask, chunk=chunk,
-                           with_index=with_index)
-
-    best_d, best_i, dstp = _nn_min_windowed(
-        src, dst, dmask, jnp.asarray(radius, jnp.float32), window_chunks,
-        axis, interpret=not on_tpu)
-
-    # exact recompute of the winning pair (same tail as nn_distance)
-    nearest = jnp.take(dstp, best_i, axis=0)
-    diff = src - nearest
-    exact = jnp.sum(diff * diff, axis=-1)
-    exact = jnp.where(best_d >= 0.5 * _BIG, best_d, exact)
-    dists = jnp.sqrt(jnp.maximum(jnp.where(smask, exact, 0.0), 0.0))
-    if with_index:
-        return dists, jnp.where(smask, best_i, 0)
-    return dists
+    correctness — a traced fit flag takes the full scan whenever dst is
+    unsorted or some tile's window exceeds window_chunks. Window chunks
+    are _DST_CHUNK rows (auto_nn_window sizes in those units)."""
+    return _nn_search(src, dst, src_mask, dst_mask, with_index, _DST_CHUNK,
+                      impl, window=(jnp.asarray(radius, jnp.float32),
+                                    window_chunks, axis))
 
 
 def nn_window_bounds(dst, axis: int | None = None):
@@ -461,8 +265,6 @@ def nn_window_bounds(dst, axis: int | None = None):
     chunk_hi, nchunks) of the sorted dst's per-chunk sort-coordinate
     bounds. Callers registering many scans against one FIXED cloud (e.g.
     ScanLocalizer) compute this once and pass it as dst_bounds."""
-    import numpy as np
-
     d = np.asarray(dst, np.float32)
     if axis is None:
         axis = int(np.argmax(d.max(axis=0) - d.min(axis=0)))
@@ -488,8 +290,6 @@ def auto_nn_window(src, dst, radius, axis: int | None = None,
     entry (nn_window is a static argument). dst_bounds: precomputed
     nn_window_bounds(dst) for fixed target clouds (skips re-sorting dst
     per call); both clouds must be non-empty."""
-    import numpy as np
-
     s = np.asarray(src, np.float32)
     if dst_bounds is None:
         dst_bounds = nn_window_bounds(dst, axis)

@@ -7,7 +7,7 @@ closure edges over the capture circle (scanner_node.cpp:164-258 — viewpoints
 ring each object, so first/last frames overlap) are jointly optimized with
 Gauss-Newton over a right-multiplicative se(3) retraction.
 
-TPU-native shape: the whole solve is one jitted function — residuals for all
+Shape: the whole solve is one jitted function — residuals for all
 edges are batched (vmap), the Jacobian of the stacked residual comes from
 jacfwd (6E x 6N, tiny for mission-scale N), and the damped normal equations
 solve on-device. Static shapes throughout: edge arrays are padded and masked

@@ -8,10 +8,9 @@ Behavioral contract from diff_node.cpp:102-158:
 * REMOVED: a virtual return (finite) with no real return within the window.
 
 The C++ double loop (2 x 1440 beams x 40-beam window at 5 Hz) becomes a
-stack of 2W statically-shifted beam arrays (padded slices — element
-gathers run at ~90M elem/s on TPU, so the original windowed-gather
-formulation cost ~6 x 57.6k gathered elements per tick; shifted copies
-are contiguous slices) + one fused elementwise reduction. Window
+stack of 2W statically-shifted beam arrays (padded contiguous slices
+instead of ~6 x 57.6k gathered elements per tick) + one fused elementwise
+reduction. Window
 semantics mirror the reference exactly: j in [max(0, i-W), min(N, i+W))
 — note the right edge excludes i+W itself.
 """

@@ -1,6 +1,6 @@
 """Direct frame-to-model tracking against the TSDF (projective alignment).
 
-KinectFusion-style camera tracking, TPU-shaped: instead of extracting the
+KinectFusion-style camera tracking, device-shaped: instead of extracting the
 model surface and running NN-correspondence ICP (two large dispatches per
 iteration), each Gauss-Newton iteration trilinearly samples the signed
 distance field AT the frame's transformed points and steps the pose down the
@@ -11,9 +11,7 @@ SDF's own gradient:
 The residual IS the (approximate) point-to-surface distance and the SDF
 gradient IS the surface normal, so no correspondence search exists at all —
 the whole tracker is one jitted dispatch of ~10 fori_loop iterations over a
-few thousand points (8 corner gathers each; ~100k gathered elements, far
-below the gather-throughput wall that motivated the one-hot MXU sampling in
-the fusion kernel).
+few thousand points (8 corner gathers each; ~100k gathered elements).
 
 The reference has no pose refinement (it trusts TF: scanner_node.cpp:227-236);
 this is the "beat the reference" capability from SURVEY §7 / BASELINE

@@ -1,11 +1,11 @@
-"""Dense TSDF fusion on TPU.
+"""Dense TSDF fusion (the semantic reference of the block-sparse path).
 
 Reproduces the behavior of Open3D's ``ScalableTSDFVolume(voxel_length=0.01,
 sdf_trunc=0.04, RGB8)`` + ``integrate`` + ``extract_triangle_mesh`` pipeline
 used at /root/reference/3d_model/reconstruct_rgbd.py:79-118, re-designed for
-TPU rather than translated:
+an accelerator rather than translated:
 
-* The volume is a fixed-extent **dense voxel grid resident in HBM** (objects
+* The volume is a fixed-extent **dense voxel grid in device memory** (objects
   are at most a few meters across; 256^3 at 1 cm is a 2.56 m cube), not a
   spatially-hashed block volume. Dense grids map onto XLA as fused
   broadcast/elementwise/gather ops with static shapes.
@@ -17,7 +17,7 @@ TPU rather than translated:
 * Multi-frame fusion is a ``lax.scan`` of that update (single compiled step,
   double-buffered by XLA), and the commutativity gives the multi-chip path:
   frames shard over a device mesh, each chip computes partial weighted sums,
-  and one ``psum`` over ICI merges them (see otslam_tpu/distributed/).
+  and one ``psum`` merges them (see otslam_tpu/distributed/).
 * Surface extraction is TSDF zero-crossing interpolation along the three grid
   axes (downstream consumers only ever use sampled point clouds —
   reconstruct_rgbd_filter.py:123 samples the mesh to 100k points immediately).
@@ -221,9 +221,8 @@ def extract_surface_points(vol: TSDFVolume, capacity: int = 1_000_000,
     masks = jnp.stack([axis_mask(0), axis_mask(1), axis_mask(2)])  # (3,X,Y,Z)
     flat_mask = masks.reshape(-1)
     count = jnp.sum(flat_mask, dtype=jnp.int32)
-    # stable argsort compaction: ~3x faster than nonzero(size=...) on TPU at
-    # grid scale (measured 478 ms -> 165 ms at 50M entries); same ascending
-    # index order and 0-fill semantics
+    # stable argsort compaction: same ascending index order and 0-fill
+    # semantics as nonzero(size=...)
     sel = jnp.argsort(~flat_mask, stable=True)[:capacity]
     if sel.shape[0] < capacity:  # capacity exceeds the grid's crossing slots
         sel = jnp.pad(sel, (0, capacity - sel.shape[0]))

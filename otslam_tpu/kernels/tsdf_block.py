@@ -3,13 +3,12 @@
 Open3D's ``ScalableTSDFVolume`` (the reference's volume type,
 reconstruct_rgbd.py:79-83) is a hash map of 16^3 voxel "volume units" created
 lazily near observed surfaces; only existing units are integrated. This module
-is the TPU-native equivalent:
+is the fixed-shape equivalent:
 
 * The volume is a **fixed grid of 8^3 voxel blocks stored block-major**:
   ``tsdf/weight: (NB+1, 512)`` where row b holds block b's voxels and the last
   row is a dead row for padding (gather/scatter there is a no-op). Block-major
-  rows make the active working set move as contiguous row DMAs — measured ~6x
-  faster than element gathers on TPU.
+  rows make the active working set move as contiguous rows.
 * A persistent ``created`` bitmask replaces the hash map: a block is created
   when it first falls within ``sdf_trunc`` (+ a one-block skirt) of an
   observed surface, and every created block inside the frustum is integrated
@@ -17,11 +16,9 @@ is the TPU-native equivalent:
 * Per frame, block activity is decided entirely with fused elementwise math
   over all blocks plus a min/max depth mip pyramid — no data-dependent
   shapes. Active block ids are compacted to a static ``max_active`` capacity
-  with ``nonzero(size=...)``.
+  (``compact_ids``; ``auto_max_active`` sizes it to a batch).
 * Only active blocks are gathered, updated (voxel-projection sampling of the
-  depth/color images), and scattered back. The depth sample is the remaining
-  element-gather; kernels/tsdf_pallas.py replaces it with an MXU one-hot
-  sampling kernel.
+  depth/color images), and scattered back.
 
 Numerically the update is identical to kernels/tsdf.py (same running weighted
 mean); tests assert dense/sparse agreement on the created region.
@@ -110,34 +107,19 @@ def _block_centers(vol: BlockTSDFVolume):
     return cx, cy, cz
 
 
-_MIP_BIG = 1.0e30  # finite "empty tile" min sentinel: the Pallas classify
-# kernel selects mip values with multiply-reduces, where an inf would turn
-# 0 * inf into NaN; 1e30 behaves like inf in every band/visible comparison
-
-
-def _bf16_conservative(v: jnp.ndarray, is_max: bool) -> jnp.ndarray:
-    """Round mip bounds to bf16-representable f32 values, padded so the
-    rounding can only widen the bound (mins move down, maxes up). Keeps the
-    XLA row-gather select and the Pallas one-hot matmul select (which runs
-    the table through a bf16 MXU dot) numerically identical."""
-    pad = jnp.abs(v) * jnp.float32(2 ** -8)
-    v2 = jnp.where(jnp.isfinite(v), v + (pad if is_max else -pad), v)
-    # preserve the exact 0.0 "no depth" sentinel (has_depth = bmax > 0)
-    return v2.astype(jnp.bfloat16).astype(jnp.float32)
+_MIP_BIG = 1.0e30  # "empty tile" min sentinel; behaves like inf in every
+# band/visible comparison
 
 
 def _depth_mips(depth: jnp.ndarray, tile: int = 16):
     """Dilated min/max depth mip, packed for a single row-gather.
 
     Returns a (th*tw, 8) table: per level-0 tile (tile x tile px) the columns
-    are [dmin0, dmax0, dmin1, dmax1, pad...] where level 1 is the tile's 4x4
-    parent. Packing both levels in one row means block classification needs
-    exactly one row-gather (measured ~12x faster than 4 element-gathers on
-    TPU). Invalid pixels are excluded (min via the finite _MIP_BIG sentinel,
-    max via 0); a 3x3 dilation makes border-straddling footprints
-    conservative. All bounds are
-    bf16-safe (see _bf16_conservative) so the Pallas classify kernel's
-    matmul select returns the same values.
+    are [dmin0, dmax0, dmin1, dmax1, dmin2, dmax2, pad, pad] where levels 1
+    and 2 are the tile's 2x and 4x coarser parents. Packing every level in
+    one row means block classification needs exactly one row-gather.
+    Invalid pixels are excluded (min via the _MIP_BIG sentinel, max via 0);
+    a 3x3 dilation makes border-straddling footprints conservative.
     """
     H, W = depth.shape
     th, tw = -(-H // tile), -(-W // tile)
@@ -178,33 +160,9 @@ def _depth_mips(depth: jnp.ndarray, tile: int = 16):
     # the finest adequate level keeps the creation band tight
     dmin1, dmax1 = coarsen(dmin0, dmax0, th, tw, 2)
     dmin2, dmax2 = coarsen(dmin0, dmax0, th, tw, 4)
-    levels = [_bf16_conservative(m, i % 2 == 1) for i, m in
-              enumerate([dmin0, dmax0, dmin1, dmax1, dmin2, dmax2])]
-    table = jnp.stack(levels, axis=-1)
+    table = jnp.stack([dmin0, dmax0, dmin1, dmax1, dmin2, dmax2], axis=-1)
     table = jnp.pad(table.reshape(th * tw, 6), ((0, 0), (0, 2)))
     return table, th, tw
-
-
-def depth_mip_planes(depth: jnp.ndarray, tile: int = 16):
-    """The same six mip bounds as `_depth_mips` laid out as level planes for
-    the Pallas classify kernel: (6*32, tw) bf16, each level's (th, tw) image
-    zero-padded to 32 rows (static sublane-aligned slices in the kernel).
-    Values are identical to the packed table's (both bf16-safe). Also
-    returns the global (gmin, gmax) bounds the too-big-footprint fallback
-    uses (same reduction as _active_blocks)."""
-    table, th, tw = _depth_mips(depth, tile)
-    imgs = table[:, :6].reshape(th, tw, 6)
-    rows = 32
-    assert th <= rows, f"mip height {th} exceeds the kernel's level stride"
-    twp = -(-tw // 128) * 128        # lane-aligned contraction dim
-    # f32 carrier (values are bf16-exact): XLA picks packed layouts for
-    # computed bf16 arrays that Mosaic rejects as dot operands ("Bad lhs
-    # type"); the kernel casts to bf16 in-register instead
-    out = jnp.zeros((6 * rows, twp), jnp.float32)
-    for c in range(6):
-        out = out.at[c * rows:c * rows + th, :tw].set(imgs[:, :, c])
-    gbounds = jnp.stack([jnp.min(table[:, 4]), jnp.max(table[:, 5])])
-    return out, gbounds, th, tw
 
 
 def _active_blocks(vol: BlockTSDFVolume, depth: jnp.ndarray,
@@ -217,35 +175,56 @@ def _active_blocks(vol: BlockTSDFVolume, depth: jnp.ndarray,
     """
     cx, cy, cz = _block_centers(vol)
     E = extrinsic.astype(jnp.float32)
-    px = E[0, 0] * cx + E[0, 1] * cy + E[0, 2] * cz + E[0, 3]
-    py = E[1, 0] * cx + E[1, 1] * cy + E[1, 2] * cz + E[1, 3]
     pz = E[2, 0] * cx + E[2, 1] * cy + E[2, 2] * cz + E[2, 3]
-
     r = 0.8661 * BLOCK * vol.voxel_size  # block bounding-sphere radius (+eps)
-    in_front = pz > r * 0.5
-    zsafe = jnp.where(pz > 1e-6, pz, 1e-6)
-    u = intr.fx * px / zsafe + intr.cx
-    v = intr.fy * py / zsafe + intr.cy
-    # pixel slack: projected bounding-sphere radius
-    slack = jnp.maximum(intr.fx, intr.fy) * r / zsafe + 1.0
-    in_frustum = (in_front & (u + slack >= 0) & (u - slack < intr.width)
-                  & (v + slack >= 0) & (v - slack < intr.height))
+
+    # image footprint from the 8 corners of the block's voxel-center box
+    # (a box projects inside the hull of its projected corners): exact for
+    # blocks near the camera, where a bounding-sphere estimate undershoots
+    h = 0.5 * (BLOCK - 1) * vol.voxel_size
+    big = jnp.float32(jnp.inf)
+    umin = vmin = zmin = big
+    umax = vmax = zmax = -big
+    for sx in (-h, h):
+        for sy in (-h, h):
+            for sz in (-h, h):
+                qx, qy, qz = cx + sx, cy + sy, cz + sz
+                px = E[0, 0] * qx + E[0, 1] * qy + E[0, 2] * qz + E[0, 3]
+                py = E[1, 0] * qx + E[1, 1] * qy + E[1, 2] * qz + E[1, 3]
+                pzk = E[2, 0] * qx + E[2, 1] * qy + E[2, 2] * qz + E[2, 3]
+                zs = jnp.where(pzk > 1e-6, pzk, 1e-6)
+                uk = intr.fx * px / zs + intr.cx
+                vk = intr.fy * py / zs + intr.cy
+                umin, umax = jnp.minimum(umin, uk), jnp.maximum(umax, uk)
+                vmin, vmax = jnp.minimum(vmin, vk), jnp.maximum(vmax, vk)
+                zmin, zmax = jnp.minimum(zmin, pzk), jnp.maximum(zmax, pzk)
+    # voxels at or behind the camera plane never integrate; a block that
+    # reaches the plane projects without bound: whole-image footprint
+    straddle = zmin <= 1e-3
+    in_frustum = (zmax > 0) & (straddle | (
+        (umax >= -1.0) & (umin < intr.width + 1.0)
+        & (vmax >= -1.0) & (vmin < intr.height + 1.0)))
+    u = 0.5 * (umin + umax)
+    v = 0.5 * (vmin + vmax)
+    # half-extent plus one pixel of round-to-nearest slack
+    slack = jnp.where(straddle, big,
+                      0.5 * jnp.maximum(umax - umin, vmax - vmin) + 1.0)
 
     tile = 16
     table, th, tw = _depth_mips(depth, tile)
     # finest adequate mip level by footprint size (each level l covers a
     # dilated (3*2^l*tile) window, guaranteeing +/- 2^l*tile of margin);
     # one packed row-gather serves all levels
-    tu0 = jnp.clip((u / tile).astype(jnp.int32), 0, tw - 1)
-    tv0 = jnp.clip((v / tile).astype(jnp.int32), 0, th - 1)
+    tu0 = jnp.clip(jnp.where(straddle, 0.0, u / tile), 0,
+                   tw - 1).astype(jnp.int32)
+    tv0 = jnp.clip(jnp.where(straddle, 0.0, v / tile), 0,
+                   th - 1).astype(jnp.int32)
     rows = jnp.take(table, tv0 * tw + tu0, axis=0)
     l1 = slack > tile
     l2 = slack > 2 * tile
     bmin = jnp.where(l2, rows[:, 4], jnp.where(l1, rows[:, 2], rows[:, 0]))
     bmax = jnp.where(l2, rows[:, 5], jnp.where(l1, rows[:, 3], rows[:, 1]))
-    # footprints beyond the coarsest level: be conservative (whole image);
-    # global bounds come from the full table (not the gathered subset) so
-    # the Pallas classify kernel can mirror them exactly
+    # footprints beyond the coarsest level: be conservative (whole image)
     too_big = slack > 4 * tile
     gmin = jnp.min(table[:, 4])
     gmax = jnp.max(table[:, 5])
@@ -313,9 +292,8 @@ def _sample_frame(wx, wy, wz, depth, color_packed, extrinsic,
 
 def compact_ids(active: jnp.ndarray, max_active: int, nb: int) -> jnp.ndarray:
     """Compact active block indices to a static capacity, padded with ``nb``
-    (the dead row), ids in ascending order. top_k over (id if active else
-    nb) beats both ``jnp.nonzero(size=...)`` and a stable argsort on TPU
-    (top_k is O(n log k) vs the full sort's O(n log^2 n))."""
+    (the dead row), ids in ascending order: top_k over (id if active else
+    nb), O(n log k) against a full sort's O(n log^2 n)."""
     ids = jnp.arange(active.shape[0], dtype=jnp.int32)
     keys = jnp.where(active, ids, nb)
     k = min(max_active, active.shape[0])
@@ -331,24 +309,61 @@ def pack_rgb(color: jnp.ndarray) -> jnp.ndarray:
     return c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
 
 
-@partial(jax.jit, static_argnames=("intr", "max_active"), donate_argnums=(0,))
-def integrate_frames_sparse(vol: BlockTSDFVolume, depths: jnp.ndarray,
-                            colors: jnp.ndarray, extrinsics: jnp.ndarray,
-                            intr: PinholeIntrinsics,
-                            max_active: int = 4096) -> BlockTSDFVolume:
-    """Fuse a batch of frames through the block-sparse path.
+def _cumulative_or(band: jnp.ndarray) -> jnp.ndarray:
+    """Inclusive cumulative OR over the frame axis of a (N, NB) bool array,
+    as one lower-triangular ones matmul (sums of 0/1 terms accumulate in
+    f32, so > 0 is exact)."""
+    n = band.shape[0]
+    tri = jnp.tril(jnp.ones((n, n), jnp.bfloat16))
+    acc = jax.lax.dot_general(tri, band.astype(jnp.bfloat16),
+                              (((1,), (0,)), ((), ())),
+                              preferred_element_type=jnp.float32,
+                              precision=jax.lax.Precision.DEFAULT)
+    return acc > 0
 
-    depths (N,H,W) f32 meters (0 invalid), colors (N,H,W,3) [0,255],
-    extrinsics (N,4,4) world->camera. One dispatch for the whole batch.
-    """
+
+@partial(jax.jit, static_argnames=("intr",))
+def _max_active_needed(vol: BlockTSDFVolume, depths, extrinsics,
+                       intr: PinholeIntrinsics):
+    """Largest per-frame active-block count of a batch: replays the creation
+    recurrence (created |= band; active = created & visible) with a
+    cumulative OR in one batched dispatch."""
     nb = vol.num_blocks
-    color_packed = jax.vmap(pack_rgb)(colors)
+    band_all, visible_all = jax.vmap(
+        lambda d, e: _active_blocks(vol, d, e, intr))(depths, extrinsics)
+    created_cum = _cumulative_or(band_all) | vol.created[:nb][None]
+    return jnp.max(jnp.sum(created_cum & visible_all, axis=1))
+
+
+def auto_max_active(vol: BlockTSDFVolume, depths, extrinsics,
+                    intr: PinholeIntrinsics, bucket: int = 128) -> int:
+    """Static active-block capacity for integrate_frames_sparse: the batch's
+    largest per-frame active count plus 1/32 headroom (the batched
+    classification here and the scanned one inside the fusion are separate
+    compilations, so a block on a float boundary could classify either
+    way), rounded up to `bucket` (larger buckets = fewer recompiles)."""
+    n = int(_max_active_needed(vol, jnp.asarray(depths),
+                               jnp.asarray(extrinsics), intr))
+    n = max(n + n // 32 + 1, 1)
+    return -(-n // bucket) * bucket
+
+
+def fuse_scan(tsdf, weight, color, created, depths, colors_packed,
+              extrinsics, intr: PinholeIntrinsics, vol_meta,
+              max_active: int):
+    """The traced core of integrate_frames_sparse: one lax.scan over the
+    frames. vol_meta = (grid_blocks, origin, voxel_size, sdf_trunc).
+    Returns (tsdf, weight, color, created); compact_ids pads with the dead
+    row, so row NB of the fields holds garbage until the caller zeroes it.
+    """
+    grid_blocks, origin, voxel_size, sdf_trunc = vol_meta
+    nb = grid_blocks[0] * grid_blocks[1] * grid_blocks[2]
 
     def step(carry, frame):
         tsdf, weight, color, created = carry
         depth, cpacked, extrinsic = frame
-        v = BlockTSDFVolume(tsdf, weight, color, created, vol.origin,
-                            vol.voxel_size, vol.sdf_trunc, vol.grid_blocks)
+        v = BlockTSDFVolume(tsdf, weight, color, created, origin,
+                            voxel_size, sdf_trunc, grid_blocks)
         band, visible = _active_blocks(v, depth, extrinsic, intr)
         created_new = created.at[:nb].set(created[:nb] | band)
         active = created_new[:nb] & visible
@@ -356,7 +371,7 @@ def integrate_frames_sparse(vol: BlockTSDFVolume, depths: jnp.ndarray,
 
         wx, wy, wz = _voxel_world_coords(v, ids)
         tsdf_obs, w_obs, col_obs = _sample_frame(
-            wx, wy, wz, depth, cpacked, extrinsic, intr, vol.sdf_trunc)
+            wx, wy, wz, depth, cpacked, extrinsic, intr, sdf_trunc)
 
         t_rows = jnp.take(tsdf, ids, axis=0)
         w_rows = jnp.take(weight, ids, axis=0)
@@ -377,15 +392,36 @@ def integrate_frames_sparse(vol: BlockTSDFVolume, depths: jnp.ndarray,
         color = color.at[ids].set(c_new)
         return (tsdf, weight, color, created_new), None
 
-    init = (vol.tsdf, vol.weight, vol.color, vol.created)
-    (tsdf, weight, color, created), _ = jax.lax.scan(
-        init=init, xs=(depths, color_packed, extrinsics), f=step)
-    # compact_ids pads with nb, so every step scatters (garbage) updates into
-    # the dead row; restore the row-nb == 0 invariant that extraction and
-    # neighbor reads rely on.
-    tsdf = tsdf.at[nb].set(0.0)
-    weight = weight.at[nb].set(0.0)
-    color = color.at[nb].set(0.0)
+    out, _ = jax.lax.scan(step, (tsdf, weight, color, created),
+                          (depths, colors_packed, extrinsics))
+    return out
+
+
+def clear_dead_row(tsdf, weight, color, nb: int):
+    """Restore the row-NB == 0 invariant that extraction and neighbor reads
+    rely on (fuse_scan scatters its padding updates there)."""
+    return (tsdf.at[nb].set(0.0), weight.at[nb].set(0.0),
+            color.at[nb].set(0.0))
+
+
+@partial(jax.jit, static_argnames=("intr", "max_active"), donate_argnums=(0,))
+def integrate_frames_sparse(vol: BlockTSDFVolume, depths: jnp.ndarray,
+                            colors: jnp.ndarray, extrinsics: jnp.ndarray,
+                            intr: PinholeIntrinsics,
+                            max_active: int = 4096) -> BlockTSDFVolume:
+    """Fuse a batch of frames through the block-sparse path.
+
+    depths (N,H,W) f32 meters (0 invalid), colors (N,H,W,3) [0,255],
+    extrinsics (N,4,4) world->camera. One dispatch for the whole batch.
+    max_active must bound every frame's active-block count (auto_max_active
+    sizes it); blocks beyond it are dropped from that frame's update.
+    """
+    vol_meta = (vol.grid_blocks, vol.origin, vol.voxel_size, vol.sdf_trunc)
+    tsdf, weight, color, created = fuse_scan(
+        vol.tsdf, vol.weight, vol.color, vol.created, depths,
+        jax.vmap(pack_rgb)(colors), extrinsics, intr, vol_meta, max_active)
+    tsdf, weight, color = clear_dead_row(tsdf, weight, color,
+                                         vol.num_blocks)
     return BlockTSDFVolume(tsdf, weight, color, created, vol.origin,
                            vol.voxel_size, vol.sdf_trunc, vol.grid_blocks)
 
@@ -564,8 +600,8 @@ def extract_surface_points_sparse(vol: BlockTSDFVolume,
     cross = (w_s[None] > 0) & (w_b > 0) & (t_s[None] * t_b < 0)  # (3, M, 512)
     flat_mask = cross.reshape(-1)
     count = jnp.sum(flat_mask, dtype=jnp.int32)
-    # stable argsort compaction (see tsdf.extract_surface_points): faster than
-    # nonzero(size=...) on TPU, same ascending order and 0-fill semantics
+    # stable argsort compaction (see tsdf.extract_surface_points): same
+    # ascending order and 0-fill semantics as nonzero(size=...)
     sel = jnp.argsort(~flat_mask, stable=True)[:capacity]
     if sel.shape[0] < capacity:  # capacity exceeds the block crossing slots
         sel = jnp.pad(sel, (0, capacity - sel.shape[0]))

@@ -4,8 +4,8 @@ Reference usage: check_one_frame.py:28 (0.01 m). Open3D buckets points by
 ``floor((p - min_bound) / voxel)`` and emits the centroid (and mean color) of
 each occupied voxel.
 
-TPU-first design: no hash maps. Points are keyed by voxel index, sorted by
-key (XLA sort is a fast bitonic network on TPU), segment boundaries found by
+Design: no hash maps. Points are keyed by voxel index, sorted by
+key (one XLA sort), segment boundaries found by
 key inequality, and per-voxel means computed with ``segment_sum`` at static
 capacity N (the input size). Output is padded: (N, 3) + mask of the unique
 voxels. Fully jittable, deterministic.

@@ -7,7 +7,7 @@ scan's beams clear free space up to the return and mark the hit cell, as
 log-odds updates on a dense grid; the result exports to the same PGM+YAML
 format the rest of the stack consumes.
 
-TPU-native shape: all beams x all ray steps are evaluated at once (same
+Shape: all beams x all ray steps are evaluated at once (same
 stepping pattern as the virtual-scan kernel); free/hit evidence lands in the
 grid with two scatter-max/adds per scan, batched over whole trajectories
 with ``lax.scan`` in a single dispatch.

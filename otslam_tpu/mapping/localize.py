@@ -2,7 +2,7 @@
 
 The reference obtains map-frame poses from slam_toolbox's TF (external).
 This module closes that gap natively: a LiDAR scan registers against the
-occupancy map's occupied cells with planar ICP (the same MXU correspondence
+occupancy map's occupied cells with planar ICP (the same NN correspondence
 kernel as the eval path), refining an odometry prior into a map-frame pose.
 
 Planar trick: scan returns and map cell centers embed at z=0 and run through

@@ -3,7 +3,7 @@
 Equivalent of the object_filter node (object_filter.cpp:40-160): the virtual
 scan converts to map-frame wall points; any candidate object point within
 ``proximity_threshold`` (default 0.5 m) of a wall point is dropped. The C++
-brute-force O(N*M) scan becomes the tiled MXU distance kernel.
+brute-force O(N*M) scan becomes the tiled NN distance search.
 """
 
 from __future__ import annotations

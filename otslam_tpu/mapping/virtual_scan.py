@@ -12,8 +12,7 @@ import numpy as np
 
 from otslam_tpu.config import LidarConfig
 from otslam_tpu.core.grid import OccupancyGrid2D
-from otslam_tpu.kernels.raycast import (prepare_raycast_grid,
-                                        raycast_grid_fast)
+from otslam_tpu.kernels.raycast import raycast_grid
 
 
 class VirtualScanner:
@@ -27,7 +26,6 @@ class VirtualScanner:
     def set_map(self, grid: OccupancyGrid2D) -> None:
         """Latched /virtual_map subscription equivalent."""
         self._map = grid
-        self._gt_pad = None   # Pallas raycast grid, prepared lazily
 
     @property
     def has_map(self) -> bool:
@@ -46,9 +44,7 @@ class VirtualScanner:
         if self._map is None:
             raise RuntimeError("no map latched; call set_map first")
         g = self._map
-        if getattr(self, "_gt_pad", None) is None:
-            self._gt_pad = prepare_raycast_grid(g.data)
-        return raycast_grid_fast(
+        return raycast_grid(
             g.data, float(g.resolution), float(g.origin[0]), float(g.origin[1]),
             jnp.float32(robot_x), jnp.float32(robot_y), jnp.float32(robot_yaw),
-            self.angles(), float(self.lidar.range_max), gt_pad=self._gt_pad)
+            self.angles(), float(self.lidar.range_max))

@@ -1,13 +1,16 @@
 """Capture-dataset adapter (the scanner_node on-disk format).
 
 Layout (scanner_node.cpp:268-299):
-    <root>/color/<label>_<n>.jpg     RGB
+    <root>/color/<label>_<n>.png     RGB (the reference robot writes .jpg;
+                                     both are read, .jpg through cv2/Pillow)
     <root>/depth/<label>_<n>.png     uint16 millimeters
     <root>/poses/<label>_<n>.txt     4x4 map->camera-body matrix
 
-Object grouping mirrors reconstruct_rgbd.py:39-58: the object name is the
-filename minus its trailing frame number (``Object_0_3.jpg -> Object_0``).
-Frames sort lexically like the reference's sorted(glob(...)).
+Simulated captures write lossless .png colour so the main path needs no
+image library. Object grouping mirrors reconstruct_rgbd.py:39-58: the
+object name is the filename minus its trailing frame number
+(``Object_0_3.png -> Object_0``). Frames sort lexically like the
+reference's sorted(glob(...)).
 """
 
 from __future__ import annotations
@@ -35,10 +38,18 @@ class FrameBatch:
     names: list
 
 
+_COLOR_EXTS = (".png", ".jpg")
+
+
+def _color_files(color_dir: str, stem: str = "*") -> list:
+    return [f for ext in _COLOR_EXTS
+            for f in glob.glob(os.path.join(color_dir, stem + ext))]
+
+
 def get_unique_object_names(color_dir: str) -> list:
     names = set()
-    for f in glob.glob(os.path.join(color_dir, "*.jpg")):
-        parts = os.path.basename(f).split("_")
+    for f in _color_files(color_dir):
+        parts = os.path.splitext(os.path.basename(f))[0].split("_")
         if len(parts) >= 2:
             names.add("_".join(parts[:-1]))
     return sorted(names)
@@ -63,7 +74,7 @@ class CaptureDataset:
         return get_unique_object_names(self.color_dir)
 
     def frame_files(self, obj_name: str) -> list[tuple[str, str, str]]:
-        colors = sorted(glob.glob(os.path.join(self.color_dir, f"{obj_name}_*.jpg")))
+        colors = sorted(_color_files(self.color_dir, f"{obj_name}_*"))
         depths = sorted(glob.glob(os.path.join(self.depth_dir, f"{obj_name}_*.png")))
         poses = sorted(glob.glob(os.path.join(self.pose_dir, f"{obj_name}_*.txt")))
         return list(zip(colors, depths, poses))
@@ -77,7 +88,7 @@ class CaptureDataset:
             triplets = self.frame_files(obj_name)
         else:
             triplets = [
-                (os.path.join(self.color_dir, f"{obj_name}_{i}.jpg"),
+                (self._color_path(f"{obj_name}_{i}"),
                  os.path.join(self.depth_dir, f"{obj_name}_{i}.png"),
                  os.path.join(self.pose_dir, f"{obj_name}_{i}.txt"))
                 for i in frame_numbers]
@@ -90,7 +101,8 @@ class CaptureDataset:
                 depth = tio.read_depth_png(df, self.camera.depth_scale)
                 color = tio.read_color(cf).astype(np.float32)
                 pose = tio.read_pose_txt(pf)
-            except Exception:
+            except (OSError, ValueError):
+                # unreadable frame; a missing JPEG library still raises
                 continue
             # fusion-time truncation (RGBD depth_trunc, reconstruct_rgbd.py:101)
             depth = np.where((depth > 0) & (depth <= self.camera.depth_trunc),
@@ -104,6 +116,14 @@ class CaptureDataset:
             raise FileNotFoundError(f"no frames for object {obj_name!r} in {self.root}")
         return FrameBatch(np.stack(depths), np.stack(colors), np.stack(exts),
                           np.stack(poses), names)
+
+    def _color_path(self, stem: str) -> str:
+        """The existing colour file of a frame (.png preferred)."""
+        for ext in _COLOR_EXTS:
+            path = os.path.join(self.color_dir, stem + ext)
+            if os.path.exists(path):
+                return path
+        return os.path.join(self.color_dir, stem + _COLOR_EXTS[0])
 
     def iter_objects(self) -> Iterator[tuple[str, FrameBatch]]:
         for name in self.object_names():
@@ -120,13 +140,12 @@ class CaptureDataset:
         if label not in self._counters:
             existing = [
                 int(os.path.basename(f)[len(label) + 1:-4])
-                for f in glob.glob(
-                    os.path.join(self.color_dir, f"{label}_*.jpg"))
+                for f in _color_files(self.color_dir, f"{label}_*")
                 if os.path.basename(f)[len(label) + 1:-4].isdigit()]
             self._counters[label] = max(existing, default=0)
         self._counters[label] += 1
         n = self._counters[label]
-        tio.write_color(os.path.join(self.color_dir, f"{label}_{n}.jpg"),
+        tio.write_color(os.path.join(self.color_dir, f"{label}_{n}.png"),
                         color_rgb)
         tio.write_depth_png(os.path.join(self.depth_dir, f"{label}_{n}.png"),
                             depth_m, self.camera.depth_scale,

@@ -3,7 +3,7 @@
 Production serving shape: a sensor/capture thread pushes RGB-D frames into
 the native SPSC ring buffer (adapters/native.FrameRing — drop-oldest QoS, no
 GIL contention on the copy), and the fusion loop drains them in micro-batches
-through the block-sparse Pallas path into a persistent volume. Poses ride a
+through the block-sparse path into a persistent volume. Poses ride a
 parallel Python-side queue keyed by the frame stamp.
 
     of = OnlineFusion(cfg.reconstruction, intr)
@@ -24,22 +24,18 @@ from otslam_tpu.adapters.native import FrameRing
 from otslam_tpu.config import ReconstructionConfig
 from otslam_tpu.core.camera import PinholeIntrinsics
 from otslam_tpu.kernels.tsdf_block import (
-    BlockTSDFVolume, extract_surface_points_sparse, make_block_volume)
-from otslam_tpu.kernels.tsdf_pallas import integrate_frames_pallas
+    BlockTSDFVolume, extract_surface_points_sparse, integrate_frames_sparse,
+    make_block_volume)
 
 
 class OnlineFusion:
     def __init__(self, cfg: ReconstructionConfig, intr: PinholeIntrinsics,
                  ring_capacity: int = 16, batch: int = 4,
-                 max_active: int = 2048, interpret: bool | None = None):
-        import jax
+                 max_active: int = 2048):
         self.cfg = cfg
         self.intr = intr
         self.batch = batch
         self.max_active = max_active
-        # Pallas kernels need interpret mode off-TPU
-        self.interpret = (jax.default_backend() == "cpu"
-                          if interpret is None else interpret)
         self.ring = FrameRing(intr.height, intr.width, ring_capacity)
         self._poses: dict = {}
         self._pose_lock = threading.Lock()
@@ -90,10 +86,9 @@ class OnlineFusion:
                     [colors, np.zeros((pad,) + colors.shape[1:], np.float32)])
                 exts = np.concatenate(
                     [exts, np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])
-            self.volume = integrate_frames_pallas(
+            self.volume = integrate_frames_sparse(
                 self.volume, jnp.asarray(depths), jnp.asarray(colors),
-                jnp.asarray(exts), self.intr, max_active=self.max_active,
-                interpret=self.interpret)
+                jnp.asarray(exts), self.intr, max_active=self.max_active)
             fused += len(frames)
             batches += 1
         self.frames_fused += fused

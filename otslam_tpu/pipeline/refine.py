@@ -4,7 +4,7 @@ BASELINE config 3 — "point-to-plane ICP pose refinement + trajectory eval vs
 GT": capture poses from odometry/TF drift; before fusing, each frame
 registers against the surface extracted from the volume built so far, and
 its extrinsic is corrected. The reference has no equivalent (it trusts TF);
-this is the TPU-native upgrade path for real-robot data.
+this is the upgrade path for real-robot data.
 
 Loop shape: host iterates frames (each step is a handful of fused device
 dispatches: backproject + sparse model extraction + point-to-plane ICP +
@@ -102,8 +102,8 @@ def _pair_nn_window(pts_a, pts_b, radius) -> tuple[int, int]:
 def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
                       cfg: ReconstructionConfig, max_active: int = 2048,
                       thresholds=(0.1, 0.05, 0.02), stride: int = 4,
-                      trust_translation: float = 0.15, trust_rot: float = 0.15,
-                      interpret: bool | None = None) -> RefineResult:
+                      trust_translation: float = 0.15, trust_rot: float = 0.15
+                      ) -> RefineResult:
     """Frame-to-frame point-to-plane tracking, then fusion with the
     corrected poses.
 
@@ -117,7 +117,6 @@ def refine_trajectory(depths, colors, extrinsics, intr: PinholeIntrinsics,
     depths (N,H,W) f32 meters, colors (N,H,W,3) [0,255], extrinsics (N,4,4)
     world->camera priors (e.g. drifting odometry).
     """
-    del interpret  # fusion backend selected below is XLA-sparse
     n = depths.shape[0]
     out_ext = [np.asarray(extrinsics[0], np.float64)]
     fitness, rmses = [], []

@@ -5,7 +5,7 @@ pipeline stage can be timed and annotated for the XLA profiler. Use:
 
     with StageTimer() as t:
         with t.stage("fuse"):
-            vol = integrate_frames_pallas(...)
+            vol = integrate_frames_sparse(...)
     print(t.report())
 
 Stages nest inside ``jax.profiler.TraceAnnotation`` so device timelines carry

@@ -1,9 +1,7 @@
-"""The BENCH_TUNED.json refresh gate: a garbage metric must never replace
-the known-good record (round 4 committed 45,000,000 ICP iters/s into it,
-poisoning every later cached-fallback bench line — VERDICT r4 #2)."""
+"""bench.py / bench_icp.py: the measurement functions run at tiny sizes on
+the CPU, and the entry points refuse to report without a GPU."""
 
 import importlib.util
-import json
 import os
 import sys
 
@@ -15,110 +13,39 @@ bench = importlib.util.module_from_spec(spec)
 sys.modules.setdefault("bench_mod", bench)
 spec.loader.exec_module(bench)
 
-GOOD_OLD = {
-    "value": 1886.6, "icp_iterations_per_sec": 690.1,
-    "perception_ticks_per_sec": 1095.8, "mesh_extracts_per_sec": 61.7,
-    "mesh_block_extracts_per_sec": 106.3, "mesh_batch_extracts_per_sec": 68.6,
-}
 
-
-def fresh(**over):
-    rec = {
-        "value": 1850.0, "icp_iterations_per_sec": 650.0,
-        "perception_ticks_per_sec": 1100.0, "mesh_extracts_per_sec": 60.0,
-        "mesh_block_extracts_per_sec": 100.0,
-        "mesh_batch_extracts_per_sec": 65.0,
-    }
-    rec.update(over)
-    return rec
-
-
-def test_healthy_record_accepted():
-    ok, reason = bench.record_plausible(fresh(), GOOD_OLD)
-    assert ok, reason
-
-
-def test_round4_45m_garbage_rejected():
-    ok, reason = bench.record_plausible(
-        fresh(icp_iterations_per_sec=45_000_000.0), GOOD_OLD)
-    assert not ok and "ceiling" in reason
-
-
-def test_sharp_regression_rejected_without_force():
-    ok, reason = bench.record_plausible(fresh(value=200.0), GOOD_OLD)
-    assert not ok and "known-good" in reason
-    ok, _ = bench.record_plausible(fresh(value=200.0), GOOD_OLD, force=True)
-    assert ok
-
-
-def test_missing_or_nonfinite_metric_rejected():
-    bad = fresh()
-    del bad["mesh_extracts_per_sec"]
-    assert not bench.record_plausible(bad, GOOD_OLD)[0]
-    for v in (float("nan"), float("inf"), 0.0, -5.0, "fast"):
-        assert not bench.record_plausible(fresh(value=v), GOOD_OLD)[0]
-
-
-def test_no_old_record_still_applies_ceilings():
-    ok, _ = bench.record_plausible(fresh(), None)
-    assert ok
-    ok, reason = bench.record_plausible(
-        fresh(perception_ticks_per_sec=1e9), None)
-    assert not ok and "ceiling" in reason
-
-
-def test_maybe_refresh_leaves_file_untouched_on_garbage(tmp_path,
-                                                        monkeypatch):
-    monkeypatch.delenv("OTSLAM_BENCH_FORCE_TUNED", raising=False)
-    path = tmp_path / "tuned.json"
-    path.write_text(json.dumps(GOOD_OLD))
-    written, reason = bench.maybe_refresh_tuned(
-        fresh(icp_iterations_per_sec=45_000_000.0), path=str(path))
-    assert not written
-    assert json.loads(path.read_text()) == GOOD_OLD
-
-    written, _ = bench.maybe_refresh_tuned(fresh(), path=str(path))
-    assert written
-    assert json.loads(path.read_text())["value"] == 1850.0
-
-
-def test_force_env_overrides_floor_but_not_ceiling(tmp_path, monkeypatch):
-    monkeypatch.setenv("OTSLAM_BENCH_FORCE_TUNED", "1")
-    path = tmp_path / "tuned.json"
-    path.write_text(json.dumps(GOOD_OLD))
-    written, _ = bench.maybe_refresh_tuned(fresh(value=200.0),
-                                           path=str(path))
-    assert written                       # investigated regression: allowed
-    written, reason = bench.maybe_refresh_tuned(
-        fresh(icp_iterations_per_sec=45_000_000.0), path=str(path))
-    assert not written and "ceiling" in reason  # garbage: never
-
-
-def test_history_append(tmp_path):
-    path = tmp_path / "hist.jsonl"
-    bench._append_history({"value": 1}, path=str(path))
-    bench._append_history({"value": 2}, path=str(path))
-    lines = path.read_text().strip().splitlines()
-    assert [json.loads(ln)["value"] for ln in lines] == [1, 2]
-
-
-def test_committed_record_is_currently_plausible():
-    """The repo's committed known-good record must itself pass the gate —
-    this is what un-poisons round 4's 45M entry and keeps it out."""
-    with open(bench.TUNED_PATH) as f:
-        rec = json.load(f)
-    ok, reason = bench.record_plausible(rec, None)
-    assert ok, f"committed BENCH_TUNED.json is implausible: {reason}"
-    assert rec["icp_iterations_per_sec"] < 1e6
-
-
-@pytest.mark.slow
 def test_bench_icp_cpu_path_smoke():
-    """bench_icp.measure() on the CPU backend returns a bounded, finite
-    value (exercises the new estimator wiring end to end)."""
+    """bench_icp.measure() at a tiny size returns finite, positive rates
+    for both searches and runs exactly the requested iterations."""
     import bench_icp
 
-    out = bench_icp.measure()
-    v = out["value"]
-    assert 0 < v < 1e6 and v == v
-    assert out["icp_config"]["rep_spread_s"]
+    out = bench_icp.measure(n=2000, impl="plain", iters=4, reps=1)
+    for key in ("windowed", "full_scan"):
+        r = out[key]
+        assert 0 < r["iters_per_s"] < float("inf")
+        assert r["iterations"] == 4
+        assert r["final_rmse_m"] < 0.05
+    assert 0 < out["nn_window"]
+
+
+@pytest.mark.parametrize("entry", ["bench", "bench_icp"])
+def test_entry_points_refuse_cpu(entry):
+    import bench_icp
+
+    fn = bench.device_record if entry == "bench" else bench_icp._device_line
+    with pytest.raises(SystemExit, match="GPU"):
+        fn()
+
+
+def test_frame_poses_face_the_target():
+    """Every capture-circle camera looks at the origin from 1.2 m."""
+    import numpy as np
+
+    Rs, eyes, exts = bench._frame_poses(12)
+    for R, eye, E in zip(Rs, eyes, exts):
+        assert abs(np.linalg.norm(eye[:2]) - 1.2) < 1e-5
+        fwd = R[:, 2]
+        np.testing.assert_allclose(fwd, -eye / np.linalg.norm(eye),
+                                   atol=1e-5)
+        # the extrinsic maps the eye to the camera origin
+        np.testing.assert_allclose(E[:3, :3] @ eye + E[:3, 3], 0, atol=1e-5)

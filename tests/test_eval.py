@@ -207,7 +207,7 @@ class TestNoiseRobustness:
 class TestPallasBackendOnCPU:
     @pytest.mark.slow
     def test_reconstruct_pallas_backend_works_off_tpu(self):
-        """The default CLI backend must work on CPU (interpret mode)."""
+        """The default CLI backend (block-sparse) must work on CPU."""
         from otslam_tpu.pipeline.reconstruct import (
             extract_filtered_cloud, fuse_frames)
         cam = CameraConfig(width=64, height=48, fx=56.0, fy=56.0,
@@ -221,6 +221,6 @@ class TestPallasBackendOnCPU:
         d = np.full((2, 48, 64), 0.4503, np.float32)
         c = np.full((2, 48, 64, 3), 90.0, np.float32)
         e = np.stack([np.eye(4, dtype=np.float32)] * 2)
-        vol = fuse_frames(d, c, e, intr, cfg, "pallas", densify=False)
+        vol = fuse_frames(d, c, e, intr, cfg, densify=False)
         res = extract_filtered_cloud(vol, cfg, seed=0, z_filter=False)
         assert len(res.points) == 5000

@@ -6,8 +6,8 @@ cardboard box + 2 cones) and the mission runs with the production
 estimated-pose stack: drifting odometry + scan-to-map localization
 (slam_toolbox-localization equivalent) AND a removed object seeded in the
 saved map so the removed-object check-point pipeline engages
-(diff_node.cpp:131-158). VERDICT r3 item #5's CPU-suite counterpart; the
-on-chip artifact is MISSION_r04.json.
+(diff_node.cpp:131-158). The same deployment runs on the GPU in
+chip_smoke.py phase (b).
 """
 
 import dataclasses as dc
@@ -49,7 +49,7 @@ def mission(tmp_path_factory):
     # member sub-segmentation (round 5) turns the table group into 5 scan
     # sites with their own circles — 900 ticks only reached the first two
     # chairs; 1800 covers the table site too (full coverage is the chip
-    # artifact MISSION_r05's job, examples/production_mission.py)
+    # job of examples/production_mission.py)
     summary = runner.run(max_ticks=1800)
     return runner, summary, work
 
@@ -71,8 +71,8 @@ class TestFullRoomMission:
         assert summary.frames_captured >= len(summary.labels)
 
     def test_table_group_scans_per_member(self, mission):
-        """The merged table+chairs group produces per-MEMBER capture sites
-        (VERDICT r4 #5): at least one captured label orbits a chair and one
+        """The merged table+chairs group produces per-MEMBER capture sites:
+        at least one captured label orbits a chair and one
         orbits the table itself, at member-scale radii (not the ~4 m group
         circle that reconstructed chairs at 25-30 cm)."""
         import glob

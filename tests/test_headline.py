@@ -2,8 +2,7 @@
 
 Automates the reference's flagship result — 99.0% map-data-size reduction
 with accuracy better than the dense baseline (README.md:60,
-eval/result_plot.py:8-18) — over the analytic simulator, VERDICT round-1
-item #8.
+eval/result_plot.py:8-18) — over the analytic simulator.
 """
 
 import pytest
@@ -55,7 +54,7 @@ def test_headline_multi_object_table_chair(tmp_path):
 
 def test_headline_from_mission_objects_dir(tmp_path):
     """objects_dir mode: the report computes from pre-reconstructed PLYs
-    (the mission-captured-data path, VERDICT r3 #5) — clouds associate to
+    (the mission-captured-data path) — clouds associate to
     scene objects by centroid, and the size story still holds."""
     import numpy as np
 

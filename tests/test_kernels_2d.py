@@ -75,145 +75,72 @@ class TestRaycast:
         assert np.isinf(got).all()
 
 
-class TestRaycastPallas:
-    """The gather-free one-hot kernel must match the XLA path exactly —
-    identical per-sample arithmetic, so bit-for-bit equality is asserted."""
-
-    def _both(self, grid, res, ox, oy, rx, ry, yaw, angles, rmax):
-        from otslam_tpu.kernels.raycast import raycast_grid_fast
-        xla = np.asarray(raycast_grid(jnp.asarray(grid), res, ox, oy,
-                                      rx, ry, yaw, jnp.asarray(angles),
-                                      rmax))
-        pal = np.asarray(raycast_grid_fast(
-            jnp.asarray(grid), res, ox, oy, rx, ry, yaw,
-            jnp.asarray(angles), rmax, impl="pallas", interpret=True))
-        return xla, pal
-
-    def test_matches_xla_walls(self, rng):
-        H, W = 40, 50
-        grid = np.zeros((H, W), np.int8)
+def _raycast_case(name, rng):
+    """(grid, res, ox, oy, rx, ry, yaw, angles, range_max) for one regime."""
+    if name == "walls":
+        grid = np.zeros((40, 50), np.int8)
         grid[30, :] = 100
         grid[:, 45] = 100
         grid[10, 5] = 100
-        angles = np.linspace(0, 2 * np.pi, 72,
-                             endpoint=False).astype(np.float32)
-        xla, pal = self._both(grid, 0.1, -2.0, -2.0, 0.3, -0.2, 0.4,
-                              angles, 5.0)
-        np.testing.assert_array_equal(xla, pal)
-
-    def test_matches_xla_random_grids(self, rng):
-        for trial in range(3):
-            H, W = 64, 96
-            grid = (rng.random((H, W)) < 0.03).astype(np.int8) * 100
-            angles = np.linspace(-np.pi, np.pi, 40,
-                                 endpoint=False).astype(np.float32)
-            rx, ry = rng.uniform(-1, 6, 2)
-            xla, pal = self._both(grid, 0.08, -1.0, -1.0, rx, ry,
-                                  float(rng.uniform(0, 6)), angles, 4.0)
-            np.testing.assert_array_equal(xla, pal)
-
-    def test_c_cast_boundary(self):
+        angles = np.linspace(0, 2 * np.pi, 72, endpoint=False)
+        return grid, 0.1, -2.0, -2.0, 0.3, -0.2, 0.4, angles, 5.0
+    if name.startswith("random"):
+        grid = (rng.random((64, 96)) < 0.03).astype(np.int8) * 100
+        angles = np.linspace(-np.pi, np.pi, 40, endpoint=False)
+        rx, ry = rng.uniform(-1, 6, 2)
+        return (grid, 0.08, -1.0, -1.0, float(rx), float(ry),
+                float(rng.uniform(0, 6)), angles, 4.0)
+    if name == "c_cast_fan":
         grid = np.zeros((20, 20), np.int8)
         grid[0, 0] = 100
-        xla, pal = self._both(grid, 0.1, 0.0, 0.0, 0.05, 0.05, 0.0,
-                              np.asarray([np.pi], np.float32) *
-                              np.ones(8, np.float32), 1.5)
-        np.testing.assert_array_equal(xla, pal)
-        assert np.isfinite(pal).all()
-
-    def test_unfit_groups_fall_back(self):
-        """Non-contiguous angle sets blow the per-group window; the traced
-        fit flag must route to the XLA path (identical results). The grid
-        must be larger than the ray extent along both axes, else the
-        right-sized window covers the whole map and every group fits."""
-        from otslam_tpu.kernels.raycast import (_raycast_pallas_keys,
-                                                _win_sizes,
-                                                prepare_raycast_grid)
-        H, W = 300, 300
-        grid = np.zeros((H, W), np.int8)
+        return (grid, 0.1, 0.0, 0.0, 0.05, 0.05, 0.0,
+                np.full(8, np.pi), 1.5)
+    if name == "wild_angles":
+        # 8 beams in wildly different directions over a map larger than
+        # the ray extent along both axes
+        grid = np.zeros((300, 300), np.int8)
         grid[220, :] = 100
-        # 8 beams pointing in wildly different directions -> group span
-        # far exceeds the extent-sized window
-        angles = np.linspace(0, 2 * np.pi, 8,
-                             endpoint=False).astype(np.float32)
-        # precondition: this workload genuinely trips the fit flag
-        gt = prepare_raycast_grid(jnp.asarray(grid))
-        num_steps = -int(-3.5 // 0.05)
-        _, _, fit = _raycast_pallas_keys(
-            gt, W, H, 0.05, -7.5, -7.5, jnp.float32(0.0), jnp.float32(0.0),
-            jnp.float32(0.0), jnp.asarray(angles), num_steps,
-            interpret=True)
-        assert not bool(fit), "fixture no longer exercises the fallback"
-        xla, pal = self._both(grid, 0.05, -7.5, -7.5, 0.0, 0.0, 0.0,
-                              angles, 3.5)
-        np.testing.assert_array_equal(xla, pal)
+        angles = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+        return grid, 0.05, -7.5, -7.5, 0.0, 0.0, 0.0, angles, 3.5
+    if name == "pose_outside_map":
+        grid = (rng.random((300, 260)) < 0.02).astype(np.int8) * 100
+        angles = rng.uniform(0, 2 * np.pi, 32)
+        return grid, 0.05, -7.0, -6.0, 9.5, -8.5, 2.0, angles, 3.6
+    assert name == "mission_geometry"
+    # production lidar (1440 contiguous beams, 10 m) over a scene-sized map
+    from otslam_tpu.config import LidarConfig
+    lidar = LidarConfig()
+    grid = np.zeros((208, 208), np.int8)
+    grid[[0, -1], :] = 100
+    grid[:, [0, -1]] = 100
+    grid[100:110, 60:70] = 100
+    inc = (lidar.angle_max - lidar.angle_min) / lidar.num_beams
+    angles = lidar.angle_min + np.arange(lidar.num_beams) * inc
+    return grid, 0.05, -5.2, -5.2, -1.0, 1.0, -1.5, angles, lidar.range_max
 
-    def test_mission_geometry_engages_kernel(self):
-        """At the production lidar geometry (1440 contiguous beams, 10 m
-        range, 0.05 m cells — LidarConfig defaults over a Scene-sized map)
-        the per-group fit flag must be True everywhere inside the map, so
-        the Pallas path genuinely runs instead of silently falling back to
-        XLA (a window-sizing regression would otherwise only show up as
-        lost perf on the chip)."""
-        from otslam_tpu.config import LidarConfig
-        from otslam_tpu.kernels.raycast import (_raycast_pallas_keys,
-                                                prepare_raycast_grid)
-        lidar = LidarConfig()
-        H = W = 208                       # Scene.occupancy_grid(0.05) scale
-        grid = np.zeros((H, W), np.int8)
-        res, ox, oy = 0.05, -5.2, -5.2
-        n = lidar.num_beams
-        inc = (lidar.angle_max - lidar.angle_min) / n
-        angles = jnp.asarray(lidar.angle_min + np.arange(n) * inc,
-                             jnp.float32)
-        num_steps = -int(-lidar.range_max // res)
-        gt = prepare_raycast_grid(jnp.asarray(grid))
-        for rx, ry, yaw in [(-1.0, 1.0, -1.5), (0.0, 0.0, 0.0),
-                            (3.0, -3.0, 2.2)]:
-            _, _, fit = _raycast_pallas_keys(
-                gt, W, H, res, ox, oy, jnp.float32(rx), jnp.float32(ry),
-                jnp.float32(yaw), angles, num_steps, interpret=True)
-            assert bool(fit), f"kernel fell back at pose {(rx, ry, yaw)}"
 
-    @pytest.mark.slow
-    def test_fuzz_parity(self, rng):
-        """Seeded fuzz over the dangerous regime: windows smaller than the
-        map, poses inside/outside the map, contiguous fans and wild angle
-        sets — exact equality against the XLA path every trial. Shapes are
-        fixed per class so interpret-mode Pallas compiles once."""
-        H, W = 300, 260          # larger than the 72-step ray extent
-        res, rmax = 0.05, 3.6
-        ox, oy = -7.0, -6.0
-        fan = np.linspace(-0.5, 0.5, 32, endpoint=False)
-        for trial in range(8):
-            grid = (rng.random((H, W)) < 0.02).astype(np.int8) * 100
-            if trial % 2:
-                angles = (fan + rng.uniform(0, 2 * np.pi)).astype(np.float32)
-            else:
-                angles = rng.uniform(0, 2 * np.pi, 32).astype(np.float32)
-            rx = float(rng.uniform(-9.0, 9.0))
-            ry = float(rng.uniform(-8.0, 9.0))
-            yaw = float(rng.uniform(0, 2 * np.pi))
-            xla, pal = self._both(grid, res, ox, oy, rx, ry, yaw,
-                                  angles, rmax)
-            np.testing.assert_array_equal(
-                xla, pal, err_msg=f"trial {trial} pose {(rx, ry, yaw)}")
+class TestRaycastOracleParity:
+    """raycast_grid against the C-loop oracle in every regime the removed
+    windowed kernel distinguished: walls, random grids, the C-cast
+    boundary, non-contiguous beams, poses outside the map and the mission's
+    lidar geometry. Same per-sample arithmetic, so ranges agree to f32
+    rounding of the step distance."""
 
-    def test_prepared_grid_reuse(self):
-        from otslam_tpu.kernels.raycast import (prepare_raycast_grid,
-                                                raycast_grid_fast)
-        grid = np.zeros((30, 30), np.int8)
-        grid[20, :] = 100
-        gt = prepare_raycast_grid(jnp.asarray(grid))
-        angles = np.linspace(0, np.pi, 16, endpoint=False).astype(np.float32)
-        base = np.asarray(raycast_grid(jnp.asarray(grid), 0.1, -1.0, -1.0,
-                                       0.2, 0.1, 0.3, jnp.asarray(angles),
-                                       2.5))
-        got = np.asarray(raycast_grid_fast(
-            jnp.asarray(grid), 0.1, -1.0, -1.0, 0.2, 0.1, 0.3,
-            jnp.asarray(angles), 2.5, gt_pad=gt, impl="pallas",
-            interpret=True))
-        np.testing.assert_array_equal(base, got)
+    @pytest.mark.parametrize("name", [
+        "walls", "random0", "random1", "random2", "c_cast_fan",
+        "wild_angles", "pose_outside_map", "mission_geometry"])
+    def test_matches_oracle(self, name):
+        rng = np.random.default_rng(sum(map(ord, name)))
+        grid, res, ox, oy, rx, ry, yaw, angles, rmax = _raycast_case(
+            name, rng)
+        angles = np.asarray(angles, np.float32)
+        got = np.asarray(raycast_grid(jnp.asarray(grid), res, ox, oy,
+                                      rx, ry, yaw, jnp.asarray(angles),
+                                      rmax))
+        want = raycast_oracle(grid, res, ox, oy, rx, ry, yaw, angles, rmax)
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        if name == "c_cast_fan":
+            assert np.isfinite(got).all()
 
 
 def diff_oracle(real, virt, angles, range_max, thr, W):

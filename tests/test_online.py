@@ -1,4 +1,4 @@
-"""Streaming fusion: sensor thread -> native ring -> Pallas fusion loop."""
+"""Streaming fusion: sensor thread -> native ring -> block-sparse fusion loop."""
 
 import threading
 
@@ -64,7 +64,7 @@ class TestOnlineFusion:
         """Streaming in two drains == one batch (order preserved)."""
         import jax.numpy as jnp
         from otslam_tpu.kernels.tsdf_block import make_block_volume
-        from otslam_tpu.kernels.tsdf_pallas import integrate_frames_pallas
+        from otslam_tpu.kernels.tsdf_block import integrate_frames_sparse
 
         of = OnlineFusion(CFG, INTR, batch=4, max_active=512)
         frames = [frame(i) for i in range(8)]
@@ -78,9 +78,8 @@ class TestOnlineFusion:
         depths = jnp.asarray(np.stack([f[0] for f in frames]))
         colors = jnp.asarray(np.stack([f[1] for f in frames]).astype(np.float32))
         exts = jnp.asarray(np.stack([f[2] for f in frames]))
-        ref = integrate_frames_pallas(make_block_volume(CFG.tsdf), depths,
-                                      colors, exts, INTR, max_active=512,
-                                      interpret=True)
+        ref = integrate_frames_sparse(make_block_volume(CFG.tsdf), depths,
+                                      colors, exts, INTR, max_active=512)
         np.testing.assert_allclose(np.asarray(of.volume.tsdf),
                                    np.asarray(ref.tsdf), atol=1e-6)
         np.testing.assert_array_equal(np.asarray(of.volume.weight),

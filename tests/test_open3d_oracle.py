@@ -21,7 +21,6 @@ from otslam_tpu.kernels.tsdf import (extract_surface_points, integrate_frames,
 from otslam_tpu.kernels.tsdf_block import (extract_surface_points_sparse,
                                            integrate_frames_sparse,
                                            make_block_volume)
-from otslam_tpu.kernels.tsdf_pallas import integrate_frames_pallas
 from otslam_tpu.sim.sensors import look_at_pose, render_rgbd
 from otslam_tpu.sim.world import cardboard_room
 
@@ -112,15 +111,3 @@ class TestPathsVsOracle:
         ours = np.asarray(pts)[np.asarray(mask)]
         r = rmse_mm(ours, oracle_surface)
         assert r <= 1.0, f"sparse RMSE {r:.3f} mm"
-
-    @pytest.mark.slow
-    def test_pallas_path(self, capture, oracle_surface):
-        depths, colors, exts, intr = capture
-        vol = integrate_frames_pallas(
-            make_block_volume(CFG), jnp.asarray(depths), jnp.asarray(colors),
-            jnp.asarray(exts), intr, max_active=2048, interpret=True)
-        pts, _, mask = extract_surface_points_sparse(vol, capacity=200000,
-                                                     max_blocks=8192)
-        ours = np.asarray(pts)[np.asarray(mask)]
-        r = rmse_mm(ours, oracle_surface)
-        assert r <= 1.0, f"pallas RMSE {r:.3f} mm"
